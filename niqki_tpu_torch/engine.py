@@ -1,0 +1,185 @@
+"""File-level drivers of the port: the -M all-vs-all matrix and the -I/-Q
+whole-genome hit query.
+
+The fof drivers ``insert_fof_whole`` and ``query_fof_whole`` are the JAX
+package's own (they only call ``sketch_files``, ``pretty_hits_batch`` and
+``counts`` of the index, which the port's SketchIndex overrides). The matrix
+self-join is ported here: the queries are the index's own bit-planes, so
+each block is a device-side re-encode + count (K2) + uint16 wrap + top-k,
+and only surviving (count, gid) pairs come back to the native formatter.
+
+Routing divergence: the JAX package's ``auto`` takes the symmetric
+triangular sweep off its TPU tunnel; the port runs the full sweep, which
+writes the same bytes. ``NIQKI_TPU_MATRIX_SYM=on`` is refused until the
+symmetric sweep is ported.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from niqki_tpu import native
+from niqki_tpu.engine import (_ParallelMatrixFmt, insert_fof_whole,
+                              query_fof_whole)
+from niqki_tpu.io.writers import (GzTextWriter, write_matrix_header,
+                                  write_matrix_row)
+
+from .index import SketchIndex
+from .ops import bcount
+
+__all__ = ["insert_fof_whole", "query_fof_whole", "query_matrix"]
+
+
+def _matrix_selfjoin_mode(index: SketchIndex) -> bool:
+    """NIQKI_TPU_MATRIX = auto|selfjoin|dense; auto takes the self-join at
+    G >= 2048 (the JAX package's gates, kept as they are)."""
+    mode = os.environ.get("NIQKI_TPU_MATRIX", "auto")
+    if mode == "dense":
+        return False
+    p = index.params
+    ok = (index.backend != "numpy" and native.available()
+          and bcount.available(p.F, p.W))
+    if mode == "selfjoin":
+        if not ok:
+            raise RuntimeError("NIQKI_TPU_MATRIX=selfjoin needs a device "
+                               "backend, the native lib, and bcount's "
+                               "shape gate (F%4096==0, 1<=W<=30)")
+        return True
+    return ok and index.G >= 2048
+
+
+def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter) -> bool:
+    """The full all-vs-all sweep over blocks of B index rows. Block i+1 and
+    i+2 are dispatched before block i is formatted, and each block's device
+    to host copy runs on a fetch thread, so the card counts while the host
+    formats. Byte-identical with the dense loop of ``query_matrix``."""
+    sym = os.environ.get("NIQKI_TPU_MATRIX_SYM", "auto")
+    if sym == "on":
+        raise NotImplementedError("NIQKI_TPU_MATRIX_SYM=on: the symmetric "
+                                  "sweep is not ported yet")
+    p = index.params
+    xp = index._planes()
+    G, Gp = index.G, xp.shape[1]
+    sparse = p.min_score > 0
+    B = min(int(os.environ.get("NIQKI_TPU_MATRIX_BLOCK",
+                               bcount.MATRIX_BLOCK)), Gp)
+    cap = min(Gp, int(os.environ.get("NIQKI_TPU_MATRIX_CAP", "1024")))
+    fmt = native.MatrixFormatter(index.names, p.F, p.min_score)
+    pfmt = _ParallelMatrixFmt(index.names, p.F, p.min_score)
+
+    starts = []
+    for lo in range(0, G, B):
+        start = max(0, min(lo, Gp - B))
+        starts.append((lo, start, lo - start, min(B - (lo - start), G - lo)))
+
+    def dispatch(i):
+        lo, start, off, n = starts[i]
+        if sparse:
+            return bcount._self_join_topk(xp, start, p.min_score, B=B,
+                                          cap=cap)
+        return bcount._self_join_dense(xp, start, B=B)
+
+    def fetch(res):
+        if sparse:
+            return res[0].cpu().numpy(), res[1].cpu().numpy()
+        return res.cpu().numpy()
+
+    stats = {"wait": 0.0, "emit": 0.0, "disp": 0.0}
+    ahead = max(1, int(os.environ.get("NIQKI_TPU_MATRIX_AHEAD", "2")))
+    try:
+        with ThreadPoolExecutor(1) as fetcher:
+            pending = [fetcher.submit(fetch, dispatch(i))
+                       for i in range(min(ahead, len(starts)))]
+            for i in range(len(starts)):
+                t0 = time.time()
+                res = pending.pop(0).result()
+                stats["wait"] += time.time() - t0
+                if i + ahead < len(starts):
+                    t0 = time.time()
+                    d = dispatch(i + ahead)
+                    stats["disp"] += time.time() - t0
+                    pending.append(fetcher.submit(fetch, d))
+                t0 = time.time()
+                _emit_selfjoin_block(index, out, fmt, res, sparse, xp,
+                                     starts[i], cap, B=B, G=G, Gp=Gp,
+                                     pfmt=pfmt)
+                stats["emit"] += time.time() - t0
+    finally:
+        pfmt.close()
+    if os.environ.get("NIQKI_TPU_MATRIX_STATS"):
+        print(f"full sweep: blocks={len(starts)} "
+              f"device-wait {stats['wait']:.1f}s "
+              f"dispatch {stats['disp']:.1f}s emit {stats['emit']:.1f}s",
+              file=sys.stderr, flush=True)
+    return True
+
+
+def _emit_selfjoin_block(index, out, fmt, res, sparse, xp, blk, cap, *,
+                         B, G, Gp, pfmt=None):
+    """Write one block's rows. A sparse row whose top-k is full (its least
+    kept count still passes min_score) may have lost survivors: only the
+    BLOCK_Q sub-blocks holding such rows are re-counted dense, and sparse
+    runs and dense rows are written interleaved in row order."""
+    p = index.params
+    lo, start, off, n = blk
+    if not sparse:
+        c = res[off:off + n, :G]
+        if pfmt is not None:
+            pfmt.write_dense(out, c, lo)
+        else:
+            out.write(fmt.format_dense(c, lo))
+        return
+    vals, idx = res
+    vals, idx = vals[off:off + n], idx[off:off + n]
+    over = (vals[:, -1] >= p.min_score) if cap < Gp else np.zeros(n, bool)
+    if not over.any():
+        if pfmt is not None:
+            pfmt.write_sparse(out, vals, idx, lo)
+        else:
+            out.write(fmt.format_sparse(vals, idx, lo))
+        return
+    over_rows = np.nonzero(over)[0]
+    dense_rows: dict[int, np.ndarray] = {}
+    for s in np.unique(over_rows // bcount.BLOCK_Q):
+        want = lo + int(s) * bcount.BLOCK_Q
+        sub = max(0, min(want, Gp - bcount.BLOCK_Q))
+        d = bcount._self_join_dense(
+            xp, sub, B=bcount.BLOCK_Q).cpu().numpy()[:, :G]
+        for r in over_rows:
+            if int(r) // bcount.BLOCK_Q == int(s):
+                dense_rows[int(r)] = d[lo + int(r) - sub]
+    r = 0
+    while r < n:
+        if over[r]:
+            out.write(fmt.format_dense(dense_rows[r][None, :], lo + r))
+            r += 1
+        else:
+            e = r
+            while e < n and not over[e]:
+                e += 1
+            out.write(fmt.format_sparse(vals[r:e], idx[r:e], lo + r))
+            r = e
+
+
+def query_matrix(index: SketchIndex, out: GzTextWriter,
+                 batch: int = 10000) -> None:
+    """All-vs-all: the Jaccard matrix of the index against itself."""
+    write_matrix_header(out, index.names)
+    if index.G and _matrix_selfjoin_mode(index) \
+            and _query_matrix_selfjoin(index, out):
+        return
+    p = index.params
+    mat = index.matrix()
+    for lo in range(0, index.G, batch):
+        hi = min(lo + batch, index.G)
+        # the reference's matrix counters are uint16 (a genome's
+        # self-count of F wraps at lF >= 16)
+        counts = index.counts(mat[lo:hi]) & 0xFFFF
+        for r in range(hi - lo):
+            write_matrix_row(out, index.names[lo + r], counts[r].tolist(),
+                             p.F, p.min_score)

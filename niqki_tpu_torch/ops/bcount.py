@@ -1,0 +1,254 @@
+"""K2: bit-plane fingerprint-match count, and the index planes around it.
+
+Port of ``niqki_tpu/ops/bcount.py``. The index is stored bit-sliced: plane
+p < W holds bit p of every fingerprint, 32 fingerprints per 32-bit lane,
+and plane W marks invalid slots. Equality over all W+1 planes is
+
+    match = AND_p XNOR(Q[p], X[p]);   counts[q, g] = sum_lanes popcount(match)
+
+Planes are int32 tensors holding the uint32 bit patterns. Invalid value
+planes are all-0 on the stored side (-2) and all-1 on the query side (-3),
+so invalid slots match nothing, not even each other.
+
+On the card the count is the hand-written kernel of ``csrc/bcount.cu``; for
+CPU tensors the wrapper takes the plain version (XNOR/AND over the planes
+and a SWAR popcount). Packing, the query-side re-encoding, top-k and the
+uint16 wrap are plain torch, as they are XLA code in the JAX package. Only
+the int16 query wire is ported; the split wire served a TPU transport.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+TILE_G = 128        # index rows are padded to a multiple of this
+BLOCK_Q = 96        # queries per count dispatch
+MATRIX_BLOCK = 8 * BLOCK_Q   # index rows per self-join dispatch
+
+
+def available(F: int, W: int) -> bool:
+    """The JAX package's shape gate, kept as is: F % 4096 == 0 and
+    1 <= W <= 30 (the CUDA kernel itself needs only F % 256 == 0)."""
+    return F % 4096 == 0 and 1 <= W <= 30
+
+
+# ---------------------------------------------------------------------------
+# bit-plane packing
+
+def _to_i32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 with the same bit pattern."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _pack_bits(b: torch.Tensor) -> torch.Tensor:
+    """(N, F) int64 of 0/1 -> (N, F/32) int32: bit f%32 of lane f//32 is the
+    value at f. Pairwise combine, never a 32x intermediate."""
+    c = b
+    w = 1
+    while w < 32:
+        c = c[:, 0::2] | (c[:, 1::2] << w)
+        w *= 2
+    return _to_i32_bits(c)
+
+
+def pack_bitplanes(mat: torch.Tensor, *, W: int, query: bool) -> torch.Tensor:
+    """(N, F) int fingerprints -> (W+1, N, F/32) int32 bit-planes on the
+    same device. Plane W is 1 where the slot is invalid (outside [0, 2^W));
+    invalid value planes are 0 on the stored side, 1 on the query side."""
+    m = mat.to(torch.int64)
+    valid = (m >= 0) & (m < (1 << W))
+    v = torch.where(valid, m, (1 << W) - 1 if query else 0)
+    planes = [_pack_bits((v >> p) & 1) for p in range(W)]
+    planes.append(_pack_bits((~valid).to(torch.int64)))
+    return torch.stack(planes)
+
+
+def pad_rows(mat16: np.ndarray, tile: int = TILE_G) -> np.ndarray:
+    """Pad index rows to a ``tile`` multiple with the never-matching -2."""
+    G, F = mat16.shape
+    Gp = -(-G // tile) * tile
+    if Gp == G:
+        return mat16
+    from niqki_tpu.hostmem import big_empty
+    out = big_empty((Gp, F), mat16.dtype)
+    out[:G] = mat16
+    out[G:] = -2
+    return out
+
+
+def build_index_planes(mat: np.ndarray, W: int, device,
+                       row_chunk: int | None = None,
+                       sanitized: bool = False) -> torch.Tensor:
+    """(G, F) host int matrix -> (W+1, Gp, F/32) int32 planes on ``device``.
+    Rows ship and pack in chunks, so the unpacked form on the device stays
+    one chunk. ``sanitized=True`` promises values in [-2, 2^W), which makes
+    an int16 wire lossless for W <= 14."""
+    m = pad_rows(np.asarray(mat))
+    if row_chunk is None:
+        row_chunk = max(TILE_G, (1 << 26) // m.shape[1])
+    if sanitized and W <= 14 and m.dtype != np.int16:
+        from niqki_tpu.hostmem import big_copy
+        m = big_copy(m, np.int16)
+    chunks = [pack_bitplanes(torch.from_numpy(
+                  np.ascontiguousarray(m[lo:lo + row_chunk])).to(device),
+                  W=W, query=False)
+              for lo in range(0, m.shape[0], row_chunk)]
+    return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the count: kernel K2 and its plain version
+
+def _popcount32(m: torch.Tensor) -> torch.Tensor:
+    """Per-element popcount of int32 bit patterns (SWAR on the masked
+    64-bit value, so the arithmetic shifts see no sign bit)."""
+    v = m.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def _bcount_plain(qp: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
+    P, Qb, L = qp.shape
+    G = xp.shape[1]
+    out = torch.empty((Qb, G), dtype=torch.int32, device=qp.device)
+    step = max(1, (1 << 22) // max(1, G * L))
+    for lo in range(0, Qb, step):
+        q = qp[:, lo:lo + step, None, :]           # (P, c, 1, L)
+        m = ~(xp[0][None] ^ q[0])
+        for p in range(1, P):
+            m &= ~(xp[p][None] ^ q[p])
+        out[lo:lo + step] = _popcount32(m).sum(dim=2, dtype=torch.int32)
+    return out
+
+
+def _bcount_call(qp: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
+    """counts (Qb, G) int32 of query planes qp (P, Qb, L) against index
+    planes xp (P, G, L), both int32 bit patterns on one device."""
+    P, Qb, L = qp.shape
+    if xp.dim() != 3 or xp.shape[0] != P or xp.shape[2] != L:
+        raise ValueError(f"plane shapes differ: {tuple(qp.shape)} vs "
+                         f"{tuple(xp.shape)}")
+    if qp.dtype != torch.int32 or xp.dtype != torch.int32:
+        raise ValueError("planes must be int32 bit patterns")
+    if qp.device != xp.device:
+        raise ValueError(f"planes on {qp.device} and {xp.device}")
+    if qp.device.type == "cpu":
+        return _bcount_plain(qp, xp)
+    kernels.require_cuda(qp, "_bcount_call")
+    if not (qp.is_contiguous() and xp.is_contiguous()):
+        raise ValueError("_bcount_call needs contiguous planes")
+    if L % 8 or qp.data_ptr() % 16 or xp.data_ptr() % 16:
+        raise ValueError("_bcount_call needs L % 8 == 0 and 16-byte "
+                         "aligned planes")
+    G = xp.shape[1]
+    out = torch.empty((Qb, G), dtype=torch.int32, device=qp.device)
+    if Qb == 0 or G == 0:
+        return out
+    lib = kernels.library()
+    with torch.cuda.device(qp.device):
+        err = lib.niqki_bcount(qp.data_ptr(), xp.data_ptr(), out.data_ptr(),
+                               P, Qb, G, L, kernels.stream_handle(qp))
+    kernels.check(err, "bcount")
+    kernels.LAUNCHES["bcount"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# query blocks
+
+def _pack_count_call(qblk: torch.Tensor, xp: torch.Tensor, *, W: int):
+    """Device-side bit-plane pack of a query block + the count."""
+    return _bcount_call(pack_bitplanes(qblk, W=W, query=True), xp)
+
+
+def _mask_topk(vals, idx, min_score):
+    """Zero sub-threshold top-k entries: (0, gid 0) pairs are ignored by
+    every consumer (min_score >= 1 on this path)."""
+    keep = vals >= min_score
+    return torch.where(keep, vals, 0), torch.where(keep, idx, 0)
+
+
+def _topk(c: torch.Tensor, cap: int, min_score: int):
+    """Row-wise top-``cap`` (count-descending, so vals[:, -1] is the least
+    kept count), masked below min_score; gids as int32."""
+    vals, idx = torch.topk(c, cap, dim=1, largest=True, sorted=True)
+    return _mask_topk(vals, idx.to(torch.int32), min_score)
+
+
+def _pack_count_topk(qblk, xp, min_score, *, W: int, cap: int):
+    return _topk(_pack_count_call(qblk, xp, W=W), cap, min_score)
+
+
+def match_counts_planes(q_np: np.ndarray, xp: torch.Tensor, G: int, W: int,
+                        sanitized: bool = False, topk: int | None = None,
+                        min_score: int = 1):
+    """counts (Q, G) int32 of host queries q_np (Q, F) against index planes
+    xp (W+1, Gp, F/32), one BLOCK_Q block per dispatch, as numpy.
+
+    Queries ship as int16 (W <= 14) or int32 after sanitizing (values
+    outside [0, 2^W) become -3 before any narrowing cast, so none aliases a
+    valid fingerprint); ``sanitized=True`` promises that already holds.
+
+    ``topk=cap`` returns (vals, idx) (Q, cap) int32 instead: per row the
+    cap largest counts, count-descending, with sub-min_score entries masked
+    to (0, 0). Rows whose vals[:, -1] >= min_score may have more survivors
+    than cap; the caller re-fetches them dense."""
+    dt = np.int16 if W <= 14 else np.int32
+    q = np.asarray(q_np)
+    if q.dtype not in (np.int16, np.int32, np.int64):
+        q = q.astype(np.int64)
+    if not sanitized:
+        q = np.where((q < 0) | (q >= (1 << W)), q.dtype.type(-3), q)
+    q = np.ascontiguousarray(q, dt)
+    outs = []
+    for lo in range(0, len(q), BLOCK_Q):
+        blk = torch.from_numpy(q[lo:lo + BLOCK_Q]).to(xp.device)
+        if topk is not None:
+            outs.append(_pack_count_topk(blk, xp, min_score, W=W, cap=topk))
+        else:
+            outs.append(_pack_count_call(blk, xp, W=W)[:, :G])
+    if topk is not None:
+        if not outs:
+            z = np.zeros((0, topk), np.int32)
+            return z, z.copy()
+        return (torch.cat([o[0] for o in outs]).cpu().numpy(),
+                torch.cat([o[1] for o in outs]).cpu().numpy())
+    if not outs:
+        return np.zeros((0, G), np.int32)
+    return torch.cat(outs).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# all-vs-all self-join (matrix mode)
+
+def _planes_as_queries(xp: torch.Tensor, lo: int, B: int) -> torch.Tensor:
+    """Stored rows [lo, lo+B) re-encoded as QUERY planes: stored-invalid
+    slots have all-0 value planes + sentinel 1, query-invalid needs all-1
+    value planes, so value |= sentinel. The queries of the all-vs-all are
+    the index itself: no query crosses from the host."""
+    P = xp.shape[0]
+    qs = xp[:, lo:lo + B]
+    return torch.cat([qs[:P - 1] | qs[P - 1:], qs[P - 1:]], dim=0)
+
+
+def _self_join_counts(xp: torch.Tensor, lo: int, B: int) -> torch.Tensor:
+    c = _bcount_call(_planes_as_queries(xp, lo, B), xp)
+    return c & 0xFFFF   # the reference's uint16 matrix counters
+
+
+def _self_join_topk(xp: torch.Tensor, lo: int, min_score: int, *, B: int,
+                    cap: int):
+    """Counts of index rows [lo, lo+B) against the whole index, wrapped to
+    uint16, then the top ``cap`` per row: (vals, gids) (B, cap) int32,
+    count-descending, sub-min_score entries masked to (0, 0)."""
+    return _topk(_self_join_counts(xp, lo, B), cap, min_score)
+
+
+def _self_join_dense(xp: torch.Tensor, lo: int, *, B: int) -> torch.Tensor:
+    """(B, Gp) int32 wrapped counts (min_score == 0: every cell prints)."""
+    return _self_join_counts(xp, lo, B)
