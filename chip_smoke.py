@@ -5,32 +5,41 @@
 
 Phases (any failure raises and exits non-zero):
   1. the card's name and power limit; build the CUDA kernels from
-     niqki_tpu_torch/csrc (timed); the native host library must load.
+     niqki_tpu_torch/csrc (one nvcc per source, in parallel; timed); the
+     native host library must load.
   2. each kernel against its plain PyTorch version on the card, exactly, at
      the shapes the main path gives it, with median times of both:
      K1 (psort) at 256 x 2^17 (a batch of 100 kb records) and 1 x 2^23
      (an E. coli-sized record); K2 (bcount) against 4096 index rows of
      1024 lanes at the -M shape (768 index rows re-encoded as queries, one
      MATRIX_BLOCK of the self-join, P = 13) and at the -Q shape (96 packed
-     queries, P = 13 and 17).
+     queries, P = 13 and 17); K3 (pcount) with 64 queries against (a) 4096
+     rows at S = 10 (the -M / -Q shape), (b) 102,400 rows at S = 10 (a
+     100k-genome index, 210 MB of int16) and (c) 4096 rows at S = 11.
   3. the golden matrix: -M tests/fixtures/fof_tiny.txt -S 16 -K 21 through
      the self-join must equal tests/fixtures/matrix_s16_tiny.gz.
   4. the main path at full size: -M over 4096 synthetic 100 kb genomes
      (128 clusters of 32 at 2% point mutation) with the golden sketch
      configuration (K=31, S=15, W=12, H=4) and -J 0.05. The sketch matrix
      must equal the host-native sketches, 96 sampled output rows must equal
-     rows formatted from host counts, and both kernels must have launched.
+     rows formatted from host counts, and K1 and K2 must have launched.
   5. -I/-Q: 96 query genomes (1% mutants of index genomes) against that
-     index; the output must equal the host-native hits.
+     index through the K2 top-k route; the output must equal the
+     host-native hits.
+  6. -M -S 10 -J 0.05 over the same 4096 genomes: the bit-plane gate fails,
+     so the dense loop counts through K3 (and launches no K2); sketches and
+     96 sampled rows must equal host-native.
+  7. -I/-Q -S 10 -J 0.05 with the same queries: the dense hit route through
+     K3; the output must equal the host-native hits.
 
 The second line from the end is a JSON object with, for each kernel and
 main-path shape, its launches in the run that gives it that shape (phase 4
-for -M, phase 5 for -Q), its error and times; the last line names the
-device. Without a CUDA device, or without the port's package beside it,
-the script fails before printing either. It imports nothing of JAX and no
-module of the JAX package by name: the host-native reference comes through
-the port (``niqki_tpu_torch.native``, ``SketchIndex`` under
-NIQKI_TPU_SKETCH=host).
+and 5 at S=15, 6 and 7 at S=10), its error, times, bound and library time;
+the last line names the device. Without a CUDA device, or without the
+port's package beside it, the script fails before printing either. It
+imports nothing of JAX and no module of the JAX package: the host-native
+reference comes through the port (``niqki_tpu_torch.native``,
+``SketchIndex`` under NIQKI_TPU_SKETCH=host).
 """
 
 from __future__ import annotations
@@ -52,6 +61,11 @@ G, LEN, CLUSTERS, MUT, QMUT, NQ = 4096, 100_000, 128, 0.02, 0.01, 96
 S = 15          # sketch size 2^S; K=31, W=12, H=4 are the CLI defaults
 SEED = 7
 T0 = time.time()
+# The H100 SXM's peaks (NVIDIA's data sheet): 3.35 TB/s of device memory;
+# 64 INT32 lanes per SM per clock (Hopper white paper) x 132 SMs x 1.98 GHz,
+# the boost clock behind the data sheet's 67 TFLOP/s of float32.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -66,6 +80,16 @@ def require(cond: bool, msg: str) -> None:
 def gz_bytes(path: str) -> bytes:
     with gzip.open(path, "rb") as f:
         return f.read()
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over the memory rate, or int32
+    operations over the INT32 instruction rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -118,8 +142,10 @@ def check_psort(B: int, n_bases: int, Np: int) -> dict:
             f"K1 differs from torch.sort at {B}x{Np}")
     ms = time_cuda(lambda: psort.sort_i32_pow2_batch(keys))
     plain_ms = time_cuda(lambda: psort.sort_plain(keys))
+    # read + write of every key; a comparison sort needs N log2 N compares
     return {"shape": f"{B}x{Np}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "library_ms": plain_ms,
+            **bound(2 * B * Np * 4, B * Np * (Np.bit_length() - 1))}
 
 
 def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
@@ -156,10 +182,52 @@ def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
         ms = time_cuda(lambda: bcount._bcount_call(qp, xp))
         plain_ms = time_cuda(lambda: bcount._bcount_plain(qp, xp), reps=5,
                              warmup=1)
-        out.append({"path": path, "shape": f"P={P} Qb={qp.shape[1]} G={G} "
-                    f"L={F // 32}", "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms})
+        Qb, L = qp.shape[1], F // 32
+        # per (query, row, lane): P XNOR-ANDs, a popcount and an add
+        out.append({"path": path, "shape": f"P={P} Qb={Qb} G={G} L={L}",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None,
+                    **bound(4 * (P * Qb * L + P * G * L + Qb * G),
+                            Qb * G * L * (P + 2))})
     return out
+
+
+def check_pcount(Gx: int, S_: int) -> dict:
+    """K3 against its plain version: PC_BLOCK_Q queries against Gx index
+    rows of F = 2^S_ int16 fingerprints (W = 12), pair-packed as
+    SketchIndex._packed ships them. Clusters of 64 rows, 1% stored -2
+    slots, 5% query -3 slots; 8 queries are exact copies of row 0."""
+    import torch
+    from niqki_tpu_torch.hostmem import pad_rows
+    from niqki_tpu_torch.ops import pcount
+    F, Qb = 1 << S_, pcount.PC_BLOCK_Q
+    rng = np.random.default_rng(Gx + S_)
+    g = rng.integers(0, 1 << 12, (Gx, F), dtype=np.int16)
+    share = rng.integers(0, 2, (Gx, F), dtype=np.int8) == 1
+    g[share] = np.repeat(g[::64], 64, axis=0)[:Gx][share]
+    g[rng.integers(0, 100, (Gx, F), dtype=np.int8) == 0] = -2
+    q = g[rng.choice(Gx, Qb, replace=False)].copy()
+    q[rng.integers(0, 20, q.shape, dtype=np.int8) == 0] = -3
+    q[:8] = g[0]
+    xp = pcount.pack_rows(torch.from_numpy(pad_rows(g, pcount.TILE_G))
+                          .cuda())
+    qp = pcount.pack_rows(torch.from_numpy(q).cuda())
+    got = pcount._count_call(qp, xp)
+    want = pcount._count_plain(qp, xp)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    require(err == 0 and torch.equal(got, want),
+            f"K3 differs from its plain version at G={Gx}, F={F}")
+    require(int(got.max()) == F and int((got > F // 4).sum()) > 8 * 64,
+            "K3 check saw no clusters")
+    ms = time_cuda(lambda: pcount._count_call(qp, xp))
+    plain_ms = time_cuda(lambda: pcount._count_plain(qp, xp), reps=5,
+                         warmup=1)
+    Gp, Fp = xp.shape
+    # per (query, row, pair lane): an xor, a test of each half, an add
+    return {"shape": f"Qb={Qb} G={Gx} F={F}", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **bound(4 * (Qb * Fp + Gp * Fp + Qb * Gp), 4 * Qb * Gp * Fp)}
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +278,8 @@ def write_queries(d: str, seqs) -> str:
 
 
 class Spy:
-    """Times and records calls of the port's index methods during a CLI
-    run (the CLI builds its index internally)."""
+    """Times and records calls of the port's index methods and engine
+    functions during a CLI run (the CLI builds its index internally)."""
 
     def __init__(self):
         import torch
@@ -220,10 +288,11 @@ class Spy:
         self.index = None
         self.sparse_hits = 0
         cls = index.SketchIndex
-        self._orig = {"sketch_files": cls.sketch_files,
-                      "_planes": cls._planes,
-                      "pretty_hits_batch": cls.pretty_hits_batch,
-                      "sweep": engine._query_matrix_selfjoin}
+        self._orig = [(cls, n, getattr(cls, n)) for n in (
+            "sketch_files", "_planes", "_packed", "pretty_hits_batch")]
+        self._orig += [(engine, n, getattr(engine, n)) for n in (
+            "query_matrix", "_query_matrix_selfjoin")]
+        orig = {n: f for _, n, f in self._orig}
         spy = self
 
         def timed(key, fn):
@@ -237,37 +306,37 @@ class Spy:
 
         def sketch_files(self_, paths, *a, **k):
             spy.index = self_
-            return timed("ingest_s", spy._orig["sketch_files"])(
+            return timed("ingest_s", orig["sketch_files"])(
                 self_, paths, *a, **k)
 
-        def planes(self_):
-            if self_._device_planes is not None:
-                return self_._device_planes
+        def device_copy(name, attr):
+            def get(self_):
+                if getattr(self_, attr) is not None:
+                    return getattr(self_, attr)
 
-            def build():
-                out = spy._orig["_planes"](self_)
-                if out.is_cuda:      # time the device work, not the enqueue
-                    torch.cuda.synchronize(out.device)
-                return out
-            return timed("planes_s", build)()
+                def build():
+                    out = orig[name](self_)
+                    torch.cuda.synchronize(out.device)  # the device work
+                    return out
+                return timed(f"{name.strip('_')}_s", build)()
+            return get
 
         def pretty(self_, q, headers):
-            buf = spy._orig["pretty_hits_batch"](self_, q, headers)
+            buf = orig["pretty_hits_batch"](self_, q, headers)
             spy.sparse_hits += buf is not None
             return buf
 
         cls.sketch_files = sketch_files
-        cls._planes = planes
+        cls._planes = device_copy("_planes", "_device_planes")
+        cls._packed = device_copy("_packed", "_device_packed")
         cls.pretty_hits_batch = pretty
-        engine._query_matrix_selfjoin = timed("sweep_s", self._orig["sweep"])
+        engine.query_matrix = timed("matrix_s", orig["query_matrix"])
+        engine._query_matrix_selfjoin = timed(
+            "sweep_s", orig["_query_matrix_selfjoin"])
 
     def close(self):
-        from niqki_tpu_torch import engine, index
-        cls = index.SketchIndex
-        cls.sketch_files = self._orig["sketch_files"]
-        cls._planes = self._orig["_planes"]
-        cls.pretty_hits_batch = self._orig["pretty_hits_batch"]
-        engine._query_matrix_selfjoin = self._orig["sweep"]
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
 
 
 def host_index(fof: str, p):
@@ -301,37 +370,36 @@ def phase_golden(d: str) -> dict:
     return launches
 
 
-def phase_matrix(d: str, fof: str, spy: "Spy"):
-    """-M at full size; returns (host reference index, launches)."""
+def phase_matrix(d: str, fof: str, spy: "Spy", S_: int, phase: int):
+    """-M at full size with -S S_; returns (host reference index,
+    launches, index)."""
     import torch
     from niqki_tpu_torch import SketchParams, cli, kernels, native
-    p = SketchParams(lF=S, min_fract=0.05)
-    out = os.path.join(d, "m.gz")
+    p = SketchParams(lF=S_, min_fract=0.05)
+    out = os.path.join(d, f"m{S_}.gz")
     os.environ["NIQKI_TPU_MATRIX_STATS"] = "1"
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spy.times.clear()
     kernels.reset_launches()
     t = time.time()
-    rc = cli.main(["-M", fof, "-S", str(S), "-J", "0.05", "-O", out])
+    rc = cli.main(["-M", fof, "-S", str(S_), "-J", "0.05", "-O", out])
     launches = dict(kernels.LAUNCHES)
     wall = time.time() - t
     del os.environ["NIQKI_TPU_MATRIX_STATS"]
     require(rc == 0, "-M rc")
     idx = spy.index
     require(idx is not None and idx.G == G, "-M did not index G genomes")
-    mem = (torch.cuda.max_memory_allocated() / 2**30
-           if torch.cuda.is_available() else float("nan"))
-    log(f"phase 4: -M wall {wall:.2f} s; ingest "
-        f"{spy.times.get('ingest_s', 0):.2f} s, planes "
-        f"{spy.times.get('planes_s', 0):.3f} s, sweep "
-        f"{spy.times.get('sweep_s', 0):.2f} s; launches {launches}; peak "
-        f"device memory {mem:.2f} GiB")
-    require(idx._device_planes is not None
-            and tuple(idx._device_planes.shape) == (13, G, p.F // 32),
-            "index planes missing or misshapen")
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    tm = {k: round(v, 3) for k, v in spy.times.items()}
+    log(f"phase {phase}: -M -S {S_} wall {wall:.2f} s; {tm} (matrix_s: "
+        f"query_matrix, which holds sweep_s or the dense loop and the first "
+        f"planes_s / packed_s); launches {launches}; peak device memory "
+        f"{mem:.2f} GiB")
     t = time.time()
     hidx = host_index(fof, p)
-    log(f"phase 4: host-native reference sketches in {time.time() - t:.1f} s")
+    log(f"phase {phase}: host-native reference sketches in "
+        f"{time.time() - t:.1f} s")
     hmat = hidx.matrix()
     require(hidx.names == idx.names, "index names differ")
     require(np.array_equal(idx.matrix(), hmat),
@@ -350,24 +418,24 @@ def phase_matrix(d: str, fof: str, spy: "Spy"):
                 f"matrix row {r} differs from host counts")
         cells += int((c >= p.min_score).sum())
     require(cells > 96, "sampled rows hold no off-diagonal similarity")
-    log(f"phase 4: sketch matrix == host-native; 96 sampled rows == host "
-        f"counts ({cells} cells >= J)")
-    return hidx, launches
+    log(f"phase {phase}: sketch matrix == host-native; 96 sampled rows == "
+        f"host counts ({cells} cells >= J)")
+    return hidx, launches, idx
 
 
-def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy") -> dict:
+def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy",
+                phase: int) -> dict:
     from niqki_tpu_torch import cli, kernels, native
     p = hidx.params
-    qout = os.path.join(d, "q.gz")
+    qout = os.path.join(d, f"q{p.lF}.gz")
     kernels.reset_launches()
     spy.sparse_hits = 0
     t = time.time()
-    rc = cli.main(["-I", fof, "-Q", qfof, "-S", str(S), "-J", "0.05",
+    rc = cli.main(["-I", fof, "-Q", qfof, "-S", str(p.lF), "-J", "0.05",
                    "-O", qout])
     wall = time.time() - t
     launches = dict(kernels.LAUNCHES)
     require(rc == 0, "-I/-Q rc")
-    require(spy.sparse_hits > 0, "-Q did not take the K2 top-k route")
     with open(qfof) as f:
         qpaths = [ln.rstrip("\n") for ln in f if ln.strip()]
     hq = host_index(qfof, p)
@@ -376,9 +444,15 @@ def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy") -> dict:
                                       p.fingerprint_range), qpaths)
     got = gz_bytes(qout)
     require(got == want, "-Q hits differ from host-native hits")
-    log(f"phase 5: -I/-Q wall {wall:.2f} s ({NQ} queries, "
-        f"{got.count(b':')} hits) == host-native; launches {launches}")
+    log(f"phase {phase}: -I/-Q -S {p.lF} wall {wall:.2f} s ({NQ} queries, "
+        f"{got.count(b':')} hits, {spy.sparse_hits} sparse top-k batches) "
+        f"== host-native; launches {launches}")
     return launches
+
+
+def kernel_entry(name, source, replaces, launches, stats, **extra):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, **stats, **extra}
 
 
 def main() -> int:
@@ -386,9 +460,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    # the port first: its import keeps the JAX package's compile-cache
-    # set-up away from HOME
-    from niqki_tpu_torch import ensure_native, kernels, native
+    from niqki_tpu_torch import kernels, native
 
     # ---- phase 1
     smi = subprocess.run(
@@ -407,8 +479,7 @@ def main() -> int:
         for line in f:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log("  ptxas: " + line.strip())
-    require(ensure_native() and native.available(),
-            "native host library did not build")
+    require(native.available(), "native host library did not build")
 
     # ---- phase 2
     k1 = check_psort(256, LEN, 1 << 17)
@@ -418,14 +489,18 @@ def main() -> int:
     for e in k2.values():
         log(f"phase 2: K2 bcount {e}")
     log(f"phase 2: K2 bcount {check_bcount(17)[0]}")
+    k3 = {key: check_pcount(Gx, S_) for key, Gx, S_ in
+          (("a", G, 10), ("b", 102_400, 10), ("c", G, 11))}
+    for key, e in k3.items():
+        log(f"phase 2: K3 pcount ({key}) {e}")
 
     with tempfile.TemporaryDirectory(prefix="niqki_smoke_") as d:
         # ---- phase 3
         launches = phase_golden(d)
-        require(min(launches.values()) > 0,
+        require(launches["psort"] > 0 and launches["bcount"] > 0,
                 f"golden run skipped a kernel: {launches}")
         log(f"phase 3: golden matrix byte-identical, launches {launches}")
-        # ---- phases 4 and 5
+        # ---- phases 4 to 7
         t = time.time()
         fof, seqs = write_genomes(d)
         qfof = write_queries(d, seqs)
@@ -433,24 +508,53 @@ def main() -> int:
             f"{time.time() - t:.1f} s")
         spy = Spy()
         try:
-            hidx, main_launches = phase_matrix(d, fof, spy)
-            require(min(main_launches.values()) > 0,
-                    f"main path skipped a kernel: {main_launches}")
-            q_launches = phase_query(d, fof, qfof, hidx, spy)
-            require(q_launches["bcount"] > 0, "-Q launched no K2")
+            hidx, m15, idx = phase_matrix(d, fof, spy, S, 4)
+            require(m15["psort"] > 0 and m15["bcount"] > 0,
+                    f"-M -S {S} skipped a kernel: {m15}")
+            require(idx._device_planes is not None and tuple(
+                idx._device_planes.shape) == (13, G, (1 << S) // 32),
+                "index planes missing or misshapen")
+            q15 = phase_query(d, fof, qfof, hidx, spy, 5)
+            require(q15["bcount"] > 0 and spy.sparse_hits > 0,
+                    "-Q -S 15 did not take the K2 top-k route")
+            hidx, m10, idx = phase_matrix(d, fof, spy, 10, 6)
+            require(m10["pcount"] > 0 and m10["bcount"] == 0
+                    and m10["psort"] > 0,
+                    f"-M -S 10 did not count through K3 alone: {m10}")
+            require(idx._device_packed is not None and tuple(
+                idx._device_packed.shape) == (G, 512),
+                "pair-packed index missing or misshapen")
+            q10 = phase_query(d, fof, qfof, hidx, spy, 7)
+            require(q10["pcount"] > 0 and q10["bcount"] == 0
+                    and spy.sparse_hits == 0,
+                    f"-Q -S 10 did not count through K3: {q10}")
         finally:
             spy.close()
 
+    k1_src = ("niqki_tpu_torch/csrc/psort.cu", "niqki_tpu/ops/psort.py:125")
+    k2_src = ("niqki_tpu_torch/csrc/bcount.cu", "niqki_tpu/ops/bcount.py:103")
+    k3_src = ("niqki_tpu_torch/csrc/pcount.cu", "niqki_tpu/ops/pcount.py:52")
     print(json.dumps({"kernels": [
-        {"name": "psort sort_i32_pow2_batch (K1)", "route": "cuda",
-         "source": "niqki_tpu_torch/csrc/psort.cu",
-         "replaces": "niqki_tpu/ops/psort.py:124",
-         "launches": main_launches["psort"], **k1},
-        *[{"name": f"bcount _bcount_call (K2, {path} shape)", "route": "cuda",
-           "source": "niqki_tpu_torch/csrc/bcount.cu",
-           "replaces": "niqki_tpu/ops/bcount.py:102",
-           "launches": launches["bcount"], **k2[path]}
-          for path, launches in (("-M", main_launches), ("-Q", q_launches))],
+        kernel_entry("psort sort_i32_pow2_batch (K1)", *k1_src,
+                     m15["psort"], k1, launches_from="phase 4, -M -S 15"),
+        kernel_entry("bcount _bcount_call (K2, -M shape)", *k2_src,
+                     m15["bcount"], k2["-M"],
+                     launches_from="phase 4, -M -S 15"),
+        kernel_entry("bcount _bcount_call (K2, -Q shape)", *k2_src,
+                     q15["bcount"], k2["-Q"],
+                     launches_from="phase 5, -I/-Q -S 15"),
+        kernel_entry("pcount _count_call (K3, shape a, -M)", *k3_src,
+                     m10["pcount"], k3["a"],
+                     launches_from="phase 6, -M -S 10"),
+        kernel_entry("pcount _count_call (K3, shape a, -Q)", *k3_src,
+                     q10["pcount"], k3["a"],
+                     launches_from="phase 7, -I/-Q -S 10"),
+        kernel_entry("pcount _count_call (K3, shape b)", *k3_src,
+                     m10["pcount"], k3["b"],
+                     launches_from="phase 6, -M -S 10, at shape a"),
+        kernel_entry("pcount _count_call (K3, shape c)", *k3_src,
+                     m10["pcount"], k3["c"],
+                     launches_from="phase 6, -M -S 10, at shape a"),
     ], "build_s": build_s, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

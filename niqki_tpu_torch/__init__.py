@@ -2,28 +2,19 @@
 
 The same engine on an NVIDIA GPU: sketching is vectorized hashing plus a
 per-slot min (the bitonic sort kernel K1, ``csrc/psort.cu``), the index is a
-dense (G, F) fingerprint matrix held as W+1 bit-planes on the card, and the
-all-vs-all matrix and hit queries count with the bit-plane kernel K2
-(``csrc/bcount.cu``). Host code (native reader, densify, formatters, fof
-drivers) is reused from ``niqki_tpu`` without its JAX device code; this
-package never imports jax. ``native`` is that host library, re-exported so
-callers of the port need no module of the JAX package.
+dense (G, F) fingerprint matrix held on the card as W+1 bit-planes (counted
+by the bit-plane kernel K2, ``csrc/bcount.cu``) or, where the bit-plane
+gate fails (S <= 11), as int16 fingerprints packed two per lane (counted by
+the pair-packed kernel K3, ``csrc/pcount.cu``). The host side (native
+reader, densify, formatters, fof ingest and queries) is the package's own
+copy of what it uses from the JAX package's jax-free modules; this package
+imports neither jax nor ``niqki_tpu``. It runs on the card unless the
+caller asks for the CPU.
 """
 
-import os as _os
-import sys as _sys
-
-if "niqki_tpu" not in _sys.modules:
-    # niqki_tpu's import points JAX's compile cache under HOME; the port
-    # runs no JAX, so it leaves HOME alone.
-    _os.environ.setdefault("NIQKI_TPU_NO_COMPILE_CACHE", "1")
-
-from niqki_tpu import native  # noqa: E402
-from niqki_tpu.params import SketchParams  # noqa: E402
-
-from . import engine  # noqa: E402
-from .index import SketchIndex, default_device, ensure_native  # noqa: E402
+from . import engine, native
+from .index import SketchIndex
+from .params import SketchParams
 
 __version__ = "0.1.0"
-__all__ = ["SketchParams", "SketchIndex", "default_device", "engine",
-           "ensure_native", "native"]
+__all__ = ["SketchParams", "SketchIndex", "engine", "native"]

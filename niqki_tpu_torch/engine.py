@@ -1,12 +1,16 @@
-"""File-level drivers of the port: the -M all-vs-all matrix and the -I/-Q
-whole-genome hit query.
+"""File-level entry points of the port: the -I/-M fof ingest, the -M
+all-vs-all matrix and the -Q whole-genome hit query.
 
-The fof drivers ``insert_fof_whole`` and ``query_fof_whole`` are the JAX
-package's own (they only call ``sketch_files``, ``pretty_hits_batch`` and
-``counts`` of the index, which the port's SketchIndex overrides). The matrix
-self-join is ported here: the queries are the index's own bit-planes, so
-each block is a device-side re-encode + count (K2) + uint16 wrap + top-k,
-and only surviving (count, gid) pairs come back to the native formatter.
+The port's counterpart of ``niqki_tpu/engine.py``, with the reference's
+path rules: -I/-M resolve fof entries from the fof's own directory, -Q from
+the CWD; names are the fof lines as written; missing entries are skipped;
+ids follow fof line order.
+
+The matrix self-join runs on the index's own bit-planes: each block is a
+device-side re-encode + count (K2) + uint16 wrap + top-k, and only
+surviving (count, gid) pairs come back to the native formatter. Indexes
+outside the bit-plane gate (S <= 11) take the dense loop, whose counts come
+from ``SketchIndex.counts`` (K3 at G >= 4096).
 
 Routing divergence: the JAX package's ``auto`` takes the symmetric
 triangular sweep off its TPU tunnel; the port runs the full sweep, which
@@ -23,16 +27,107 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from niqki_tpu import native
-from niqki_tpu.engine import (_ParallelMatrixFmt, insert_fof_whole,
-                              query_fof_whole)
-from niqki_tpu.io.writers import (GzTextWriter, write_matrix_header,
-                                  write_matrix_row)
-
+from . import hostmem, native
 from .index import SketchIndex
+from .io.fasta import exists, read_fof, read_query_fof
+from .io.writers import (GzTextWriter, write_binary_hits, write_matrix_header,
+                         write_matrix_row, write_pretty_hits)
 from .ops import bcount
 
-__all__ = ["insert_fof_whole", "query_fof_whole", "query_matrix"]
+__all__ = ["insert_fof_whole", "query_fof_whole", "query_matrix",
+           "query_file_matrix", "query_fof_matrix"]
+
+
+def _fof_entries(fof_path: str):
+    """Yield (name_as_written, resolved_path) for existing entries, resolved
+    from the fof's directory (the reference's -I/-M chdir)."""
+    base = os.path.dirname(os.path.abspath(fof_path))
+    for line in read_fof(fof_path):
+        path = line if os.path.isabs(line) else os.path.join(base, line)
+        if exists(path):
+            yield line, path
+
+
+def insert_fof_whole(index: SketchIndex, fof_path: str) -> None:
+    entries = list(_fof_entries(fof_path))
+    sketches = index.sketch_files([p for _, p in entries])
+    for (name, _), sk in zip(entries, sketches):
+        index.insert_sketch(sk, name)
+
+
+def _stack_sketches(sks) -> np.ndarray:
+    q = hostmem.big_empty((len(sks), len(sks[0])), np.int32)
+    for i, s in enumerate(sks):
+        q[i] = s
+    return q
+
+
+def query_fof_whole(index: SketchIndex, fof_path: str, out: GzTextWriter,
+                    pretty: bool = True, batch: int = 96) -> None:
+    """-Q: each fof entry (resolved from the CWD) is sketched whole and
+    queried. Chunk i+1 sketches on a thread while chunk i counts and
+    formats; rows stream in fof order. Pretty rows take the sparse K2
+    top-k route when the index is eligible, else dense counts."""
+    lines = [ln for ln in read_query_fof(fof_path) if exists(ln)]
+    chunks = [lines[lo:lo + batch] for lo in range(0, len(lines), batch)]
+
+    def process(chunk, sks):
+        if pretty and sks:
+            buf = index.pretty_hits_batch(_stack_sketches(sks), chunk)
+            if buf is not None:
+                out.write(buf)
+                return
+        counts = index.counts(_stack_sketches(sks)) if sks else []
+        for name, c in zip(chunk, counts):
+            hits = index.hits_from_counts(c)
+            if pretty:
+                write_pretty_hits(out, name, hits, index.names,
+                                  index.params.F)
+            else:
+                write_binary_hits(out, name, hits)
+
+    with ThreadPoolExecutor(1) as pre:
+        fut = pre.submit(index.sketch_files, chunks[0]) if chunks else None
+        for i, chunk in enumerate(chunks):
+            sks = fut.result()
+            fut = pre.submit(index.sketch_files, chunks[i + 1]) \
+                if i + 1 < len(chunks) else None
+            process(chunk, sks)
+
+
+class _ParallelMatrixFmt:
+    """Row-chunked parallel front of native.MatrixFormatter (the C++
+    formatter releases the GIL). Each worker owns its formatter, whose
+    output buffer is not shareable; chunks write to ``out`` in row
+    order."""
+
+    def __init__(self, names, F: int, min_score: int, threads: int = 4):
+        self._fmts = [native.MatrixFormatter(names, F, min_score)
+                      for _ in range(threads)]
+        self._pool = ThreadPoolExecutor(threads)
+
+    def _write(self, out, method: str, arrays, row0: int) -> None:
+        n = len(arrays[0])
+        if n <= 96:
+            out.write(getattr(self._fmts[0], method)(*arrays, row0))
+            return
+        k = len(self._fmts)
+        chunk = -(-n // k)
+        futs = [self._pool.submit(getattr(self._fmts[t], method),
+                                  *[a[t * chunk:(t + 1) * chunk]
+                                    for a in arrays], row0 + t * chunk)
+                for t in range(k) if t * chunk < n]
+        for f in futs:
+            out.write(f.result())
+
+    def write_sparse(self, out, vals, idx, row0: int) -> None:
+        self._write(out, "format_sparse", (vals, idx), row0)
+
+    def write_dense(self, out, counts, row0: int) -> None:
+        self._write(out, "format_dense", (counts,), row0)
+
+    def close(self):
+        self._pool.shutdown()
 
 
 def _matrix_selfjoin_mode(index: SketchIndex) -> bool:
@@ -183,3 +278,27 @@ def query_matrix(index: SketchIndex, out: GzTextWriter,
         for r in range(hi - lo):
             write_matrix_row(out, index.names[lo + r], counts[r].tolist(),
                              p.F, p.min_score)
+
+
+def query_file_matrix(index: SketchIndex, path: str,
+                      out: GzTextWriter) -> None:
+    """One matrix-formatted row (no header) for a whole-file query: the
+    reference's query_file_whole_matrix."""
+    counts = index.counts(index.sketch_file(path)[None, :])[0]
+    write_matrix_row(out, path, counts.tolist(), index.params.F,
+                     index.params.min_score)
+
+
+def query_fof_matrix(index: SketchIndex, fof_path: str, out: GzTextWriter,
+                     batch: int = 256) -> None:
+    """Matrix-formatted rows for external query files (the reference's
+    query_file_of_file_whole_matrix): entries resolve from the CWD with no
+    length filter, as query fofs do."""
+    write_matrix_header(out, index.names)
+    entries = [ln for ln in read_query_fof(fof_path) if exists(ln)]
+    for lo in range(0, len(entries), batch):
+        chunk = entries[lo:lo + batch]
+        counts = index.counts(np.stack(index.sketch_files(chunk)))
+        for name, row in zip(chunk, counts):
+            write_matrix_row(out, name, row.tolist(), index.params.F,
+                             index.params.min_score)

@@ -1,16 +1,21 @@
 """SketchIndex on a torch device.
 
-Subclass of ``niqki_tpu.index.SketchIndex``: the host side (fof handling,
-native reader, densify, the dense (G, F) matrix, the formatters) is
-inherited; the methods that reach the JAX package's device code are
-overridden here with the torch ops of this package. The index's device is
-explicit: ``SketchIndex(params, device)``, by default CUDA when present.
+The port's counterpart of ``niqki_tpu/index.py``: the index is the dense
+(G, F) int32 fingerprint matrix of the densified sketches on the host, with
+device copies for counting (bit-planes for K2, pair-packed int16 for K3, the
+plain matrix for the blocked count), each cached until the next insert.
+Counts equal the reference's posting-list scans by construction: genome g
+is in bucket (slot i, fingerprint v) iff sketches[g, i] == v.
+
+The index's device is explicit: ``SketchIndex(params, device)`` runs on
+``cuda`` unless the caller asks for ``cpu``, and raises when torch sees no
+card. Lines mode, dumps, checkpoints and the multi-device layouts are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -18,60 +23,55 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from niqki_tpu import index as _base
-from niqki_tpu import native, oracle
-from niqki_tpu.io.fasta import read_records
-from niqki_tpu.params import SketchParams
-
-from .ops import bcount
+from . import hostmem, native, oracle
+from .io.fasta import read_records
+from .ops import bcount, pcount
 from .ops.sketch import INT32_MAX, dispatch_sketch_packed_batch, pack_codes
+from .params import SketchParams
 
 
-def ensure_native() -> bool:
-    """Load niqki_tpu's native host library, building it if needed.
-
-    ``niqki_tpu.native`` runs ``make -C native`` at first use. The
-    Makefile's libdeflate probe (``printf '\\#include <libdeflate.h>'``)
-    keeps its backslash under GNU make 4.3+, so it passes where libdeflate
-    is absent and the link then fails. When no library exists after that,
-    build it once more without libdeflate (zlib only: the same decompressed
-    bytes)."""
+def _densify(sketch: np.ndarray, p: SketchParams) -> None:
+    """In-place densification: native C++ when built, the oracle otherwise."""
     if native.available():
-        return True
-    if os.path.exists(native._SO_PATH) or os.environ.get(
-            "NIQKI_TPU_NO_NATIVE_BUILD") or os.environ.get("NIQKI_TPU_NO_NATIVE"):
-        return False            # built but not loadable here, or opted out
-    try:
-        subprocess.run(["make", "-C", native._NATIVE_DIR, "-s",
-                        "HAVE_DEFLATE=0"], capture_output=True, timeout=300,
-                       check=False)
-    except (OSError, subprocess.TimeoutExpired):
-        return False            # no make: the pure-Python host paths serve
-    native._tried = False       # let niqki_tpu.native load the fresh build
-    return native.available()
+        native.densify(sketch)
+    else:
+        oracle.densify(sketch, p)
 
 
-def default_device() -> torch.device:
-    """CUDA when torch sees a card, else the CPU (as JAX falls back to its
-    CPU backend)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def hits_from_counts(counts: np.ndarray, min_score: int
+                     ) -> list[tuple[int, int]]:
+    """Thresholded (count, gid) list sorted count desc then gid desc, the
+    reference's query_sketch ordering."""
+    c = np.asarray(counts)
+    sel = np.nonzero(c >= min_score)[0]
+    order = np.lexsort((-sel, -c[sel].astype(np.int64)))
+    return [(int(c[g]), int(g)) for g in sel[order]]
 
 
-class SketchIndex(_base.SketchIndex):
-    def __init__(self, params: SketchParams, device=None,
+class SketchIndex:
+    def __init__(self, params: SketchParams, device="cuda",
                  backend: str = "torch"):
-        super().__init__(params, backend=backend)
-        self.device = (torch.device(device) if device is not None
-                       else default_device())
+        self.params = params
+        self.backend = backend
+        self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("SketchIndex on a CUDA device, but torch "
-                               "sees no card")
+            raise RuntimeError("SketchIndex on a CUDA device, but torch sees "
+                               "no card (pass device='cpu' to run on the "
+                               "CPU)")
+        self.names: list[str] = []
+        self._rows: list[np.ndarray] = []
+        self._mat: np.ndarray | None = None  # consolidated (G, F)
+        self._device_mat = None              # (G, F) for the blocked count
+        self._device_packed = None           # pair-packed (Gp, F/2) for K3
+        self._device_planes = None           # bit-planes for K2
+        self._hits_fmt = None                # native HitsFormatter
+        self._stored_host = None             # host count-side matrix
 
     # ------------------------------------------------------------------
-    # state carried over from the JAX package
+    # state carried over from arrays or from the JAX package
     @classmethod
     def from_arrays(cls, params: SketchParams, names, mat: np.ndarray,
-                    device=None) -> "SketchIndex":
+                    device="cuda") -> "SketchIndex":
         """An index holding ``names`` and the (G, F) int32 sketch matrix."""
         idx = cls(params, device=device)
         idx.names = list(names)
@@ -79,10 +79,15 @@ class SketchIndex(_base.SketchIndex):
         return idx
 
     @classmethod
-    def from_jax(cls, jidx: _base.SketchIndex, device=None) -> "SketchIndex":
-        """The same index as a ``niqki_tpu.SketchIndex`` (names + matrix)."""
-        return cls.from_arrays(jidx.params, jidx.names, jidx.matrix(),
-                               device=device)
+    def from_jax(cls, jidx, device="cuda") -> "SketchIndex":
+        """The same index as a ``niqki_tpu.SketchIndex`` (params field by
+        field, the -G stale constants included; names; matrix)."""
+        jp = jidx.params
+        p = SketchParams(lF=jp.lF, K=jp.K, W=jp.W, H=jp.H,
+                         min_fract=jp.min_fract,
+                         stale_mask_M=jp.stale_mask_M,
+                         stale_maximal_remainder=jp.stale_maximal_remainder)
+        return cls.from_arrays(p, jidx.names, jidx.matrix(), device=device)
 
     # ------------------------------------------------------------------
     # sketching
@@ -106,7 +111,30 @@ class SketchIndex(_base.SketchIndex):
         recs = [pack_codes(*oracle.encode_record(s, p.K), p.K) for s in seqs]
         return self._finalize_tables(self._device_tables(recs))
 
+    def _host_sketch_route(self) -> bool:
+        """NIQKI_TPU_SKETCH=host sketches whole files on the host's native
+        rolling sketcher instead of the device (the default)."""
+        return (os.environ.get("NIQKI_TPU_SKETCH") == "host"
+                and self.backend != "numpy" and native.available())
+
+    def _host_sketch_whole(self, recs) -> np.ndarray:
+        p = self.params
+        return native.sketch_packed_whole(
+            recs, p.lF, p.K, p.W, p.H, p.mask_M, p.maximal_remainder)
+
+    def sketch_file(self, path: str) -> np.ndarray:
+        if self._host_sketch_route():
+            return self._host_sketch_whole(
+                [(w, n, e) for _, w, n, e
+                 in native.read_packed_records(path, self.params.K)])
+        return self.sketch_records(s for _, s in read_records(path,
+                                                              self.params.K))
+
     def _load_packed(self, path: str):
+        """Parse and pack every record of one file into the 2-bit wire
+        (words, n_bases, exc_idx): the native reader when built (it
+        releases the GIL), else Python. Unreadable or corrupt files are
+        skipped with a warning, as the reference skips missing entries."""
         p = self.params
         try:
             if native.available():
@@ -133,21 +161,32 @@ class SketchIndex(_base.SketchIndex):
             cur = np.where(sketch == -1, INT32_MAX, sketch)
             merged = np.minimum(cur, table)
             sketch = np.where(merged == INT32_MAX, -1, merged).astype(np.int32)
-            _base._densify(sketch, self.params)
+            _densify(sketch, self.params)
         return sketch
+
+    def _sketch_files_host(self, paths, io_threads: int | None):
+        """Whole-file sketches on the host sketcher: each file's read and
+        sketch chain in one pool task (both release the GIL)."""
+        io_threads = io_threads or min(8, 2 * (os.cpu_count() or 1))
+        with ThreadPoolExecutor(max_workers=io_threads) as pool:
+            futs = [pool.submit(lambda pa=pa: self._host_sketch_whole(
+                        self._load_packed(pa))) for pa in paths]
+            return [f.result() for f in futs]
 
     def sketch_files(self, paths, window: int = 256,
                      io_threads: int | None = None) -> list[np.ndarray]:
-        """Whole-file sketches for many files. The host route
-        (NIQKI_TPU_SKETCH=host) is the parent's; the device route reads a
+        """Whole-file sketches for many files. The device route reads a
         window of files on a thread pool, sketches all its records in
         batches on the device (a window of 100 kb records stacks into
         batches of up to 256 rows of 2^17 bases), and collects the previous
         window's tables while the next one loads. NIQKI_TPU_WINDOW
-        overrides ``window``."""
+        overrides ``window``; NIQKI_TPU_SKETCH=host takes the host
+        sketcher."""
         paths = list(paths)
-        if self.backend == "numpy" or self._host_sketch_route():
-            return super().sketch_files(paths, io_threads=io_threads)
+        if self.backend == "numpy":
+            return [self.sketch_file(p) for p in paths]
+        if self._host_sketch_route():
+            return self._sketch_files_host(paths, io_threads)
         env_w = os.environ.get("NIQKI_TPU_WINDOW")
         if env_w:
             window = max(1, int(env_w))
@@ -189,13 +228,82 @@ class SketchIndex(_base.SketchIndex):
                 collect(pending)
         return out
 
-    # Lines mode (-i/-l) and the multi-device layouts are later slices.
-    def _not_ported(self, *_a, **_k):
-        raise NotImplementedError("niqki_tpu_torch: lines mode and sharded "
-                                  "serving are not ported yet")
+    # ------------------------------------------------------------------
+    # insertion and the dense matrix
+    def insert_sketch(self, sketch: np.ndarray, name: str) -> int:
+        gid = len(self.names)
+        self.names.append(name)
+        self._rows.append(np.asarray(sketch, np.int32))
+        self._device_mat = None
+        self._device_packed = None
+        self._device_planes = None
+        self._stored_host = None
+        return gid
 
-    insert_file_lines = sketch_packed_records = _sketch_stream = _not_ported
-    _sharded_for = _not_ported
+    @property
+    def G(self) -> int:
+        return len(self.names)
+
+    def matrix(self) -> np.ndarray:
+        if self._mat is None or len(self._mat) != self.G:
+            if self._rows:
+                prev = self._mat
+                n_prev = len(prev) if prev is not None else 0
+                mat = hostmem.big_empty(
+                    (n_prev + len(self._rows), self.params.F), np.int32)
+                if n_prev:
+                    mat[:n_prev] = prev
+                for i, r in enumerate(self._rows):
+                    mat[n_prev + i] = r
+                self._mat = mat
+                self._rows = []
+            elif self._mat is None:
+                self._mat = np.zeros((0, self.params.F), np.int32)
+        return self._mat
+
+    @property
+    def _device_dtype(self):
+        # W <= 14 fingerprints and the -1/-2/-3 sentinels fit int16
+        return np.int16 if self.params.W <= 14 else np.int32
+
+    def _stored(self) -> np.ndarray:
+        """Count-side copy of the matrix: fingerprints outside [0, 2^W)
+        become -2, as the reference's insert puts them in no bucket (empty
+        slots, and the out-of-range values the -G stale constants can
+        produce)."""
+        mat = self.matrix()
+        out = hostmem.big_empty(mat.shape, np.int32)
+        hi_fp = self.params.fingerprint_range
+        B = 1 << 14
+
+        def fix(lo):
+            blk = mat[lo:lo + B]
+            dst = out[lo:lo + B]
+            np.copyto(dst, blk)
+            dst[(blk < 0) | (blk >= hi_fp)] = -2
+
+        blocks = range(0, len(mat), B)
+        if len(mat) > B:  # numpy releases the GIL on the copies/compares
+            with ThreadPoolExecutor(min(4, os.cpu_count() or 1)) as ex:
+                list(ex.map(fix, blocks))
+        else:
+            for lo in blocks:
+                fix(lo)
+        return out
+
+    def _stored_cached(self) -> np.ndarray:
+        """_stored() cached until the next insert (the host count route
+        runs once per query chunk)."""
+        if self._stored_host is None or len(self._stored_host) != self.G:
+            self._stored_host = self._stored()
+        return self._stored_host
+
+    def _query_side(self, q: np.ndarray) -> np.ndarray:
+        """Out-of-range query fingerprints scan no bucket in the reference,
+        so they map to -3: matching neither valid fingerprints nor the
+        stored -2."""
+        bad = (q < 0) | (q >= self.params.fingerprint_range)
+        return np.where(bad, -3, q)
 
     # ------------------------------------------------------------------
     # device copies of the index
@@ -206,48 +314,75 @@ class SketchIndex(_base.SketchIndex):
         return self._device_mat
 
     def _planes(self) -> torch.Tensor:
-        """The (W+1, Gp, F/32) index bit-planes on the device (cached until
-        the next insert)."""
+        """The (W+1, Gp, F/32) index bit-planes on the device."""
         if self._device_planes is None:
             self._device_planes = bcount.build_index_planes(
                 self._stored(), self.params.W, self.device, sanitized=True)
         return self._device_planes
+
+    def _packed(self) -> torch.Tensor:
+        """The (Gp, F/2) pair-packed int16 index on the device, rows padded
+        to a TILE_G multiple with -2. Needs W <= 14: the sanitized values
+        lie in [-2, 2^W), so the int16 cast is lossless."""
+        if self._device_packed is None:
+            mat16 = hostmem.pad_rows(
+                hostmem.big_copy(self._stored(), np.int16), pcount.TILE_G)
+            self._device_packed = pcount.pack_rows(
+                torch.from_numpy(mat16)).to(self.device)
+        return self._device_packed
 
     # ------------------------------------------------------------------
     # querying
     def counts(self, q_sketches: np.ndarray) -> np.ndarray:
         """Hit counts (Q, G) for a batch of query sketches (Q, F).
 
-        Routes (NIQKI_TPU_COUNT = auto|host|bcount|xla): the native host
-        count for G <= NIQKI_TPU_HOST_COUNT_G (default 2048) under auto; the
-        bit-plane kernel K2 for G >= 4096 or when asked, under its shape
-        gate; otherwise a plain torch blocked equality count. The JAX
-        package's ``bcount-interpret`` means ``bcount`` here: on the CPU the
-        kernel wrapper runs its plain version anyway."""
+        Routes, as the JAX package's (NIQKI_TPU_COUNT = auto|host|bcount|
+        pcount|xla): the native host count for G <= NIQKI_TPU_HOST_COUNT_G
+        (default 2048) under auto; the bit-plane kernel K2 for G >= 4096
+        (or when asked) under its shape gate; the pair-packed kernel K3 for
+        G >= 4096, W <= 14 and its shape gate (the S <= 11 indexes);
+        otherwise a plain torch blocked count. NIQKI_TPU_NO_PCOUNT forces
+        the blocked count. ``bcount-interpret`` means ``bcount`` here: on
+        the CPU the kernel wrappers run their plain versions anyway."""
         raw = np.atleast_2d(np.asarray(q_sketches, np.int32))
-        if self.G == 0 or self.backend == "numpy":
-            return super().counts(raw)
+        if self.G == 0:
+            return np.zeros((len(raw), 0), np.int32)
+        if self.backend == "numpy":
+            q = self._query_side(raw)
+            mat = self._stored()
+            out = np.empty((len(q), self.G), np.int32)
+            for i, row in enumerate(q):
+                out[i] = (mat == row[None, :]).sum(axis=1, dtype=np.int32)
+            return out
         mode = os.environ.get("NIQKI_TPU_COUNT", "auto")
-        if mode in ("pcount", "mxu"):
-            raise NotImplementedError(f"NIQKI_TPU_COUNT={mode}: that count "
-                                      "route is not ported yet")
+        if mode == "mxu":
+            raise NotImplementedError("NIQKI_TPU_COUNT=mxu: that count route "
+                                      "is not ported yet")
         host_max_g = int(os.environ.get("NIQKI_TPU_HOST_COUNT_G", "2048"))
         if native.available() and (
                 mode == "host" or (mode == "auto" and self.G <= host_max_g)):
+            # raw q: the C++ count applies the query range guard itself
             return native.count_eq(np.ascontiguousarray(raw),
                                    self._stored_cached(),
                                    self.params.fingerprint_range)
         p = self.params
         q = self._query_side(raw)
-        want_b = mode in ("bcount", "bcount-interpret") or self.G >= 4096
-        if mode != "xla" and want_b and bcount.available(p.F, p.W):
+        if os.environ.get("NIQKI_TPU_NO_PCOUNT"):
+            mode = "xla"
+        want_b = mode in ("bcount", "bcount-interpret") or (
+            mode == "auto" and self.G >= 4096)
+        if want_b and bcount.available(p.F, p.W):
             return bcount.match_counts_planes(q, self._planes(), self.G, p.W,
                                               sanitized=True)
+        if mode in ("auto", "pcount") and self.G >= 4096 and p.W <= 14 \
+                and pcount.available(p.F):
+            return pcount.match_counts_packed(q.astype(np.int16),
+                                              self._packed(), self.G)
         return self._counts_blocked(q)
 
     def _counts_blocked(self, q: np.ndarray) -> np.ndarray:
         """Plain torch equality count against the device matrix (the route
-        for indexes outside the bit-plane gate, and NIQKI_TPU_COUNT=xla)."""
+        for indexes outside both kernels' gates, and NIQKI_TPU_COUNT=xla)."""
         mat = self._device_matrix()
         block = max(1, (1 << 26) // (self.G * self.params.F))
         qd = torch.from_numpy(q.astype(self._device_dtype)).to(self.device)
@@ -257,6 +392,39 @@ class SketchIndex(_base.SketchIndex):
             out[lo:lo + block] = (qd[lo:lo + block, None, :]
                                   == mat[None]).sum(-1, dtype=torch.int32)
         return out.cpu().numpy()
+
+    def hits_from_counts(self, c: np.ndarray) -> list[tuple[int, int]]:
+        return hits_from_counts(c, self.params.min_score)
+
+    def _hits_fmt_cached(self):
+        if self._hits_fmt is None or self._hits_fmt.G != self.G:
+            self._hits_fmt = native.HitsFormatter(self.names, self.params.F,
+                                                  self.params.min_score)
+        return self._hits_fmt
+
+    def _emit_sparse_rows(self, q, headers, vals, idx, over,
+                          dense_fn) -> bytes:
+        """Format the top-k (vals, idx) survivors, re-fetching rows whose
+        survivors overflowed the cap through ``dense_fn(rows)``:
+        byte-identical with HitsFormatter.format(counts(q), headers)."""
+        fmt = self._hits_fmt_cached()
+        if not over.any():
+            return fmt.format_sparse(vals, idx, headers)
+        if over.mean() > 0.25:
+            # hit-saturated batch: one dense pass costs less than per-row
+            # re-fetches
+            return fmt.format(dense_fn(q), headers)
+        dense_rows = np.nonzero(over)[0]
+        dense = dense_fn(q[dense_rows])
+        parts, di = [], 0
+        for r in range(len(q)):
+            if over[r]:
+                parts.append(fmt.format(dense[di:di + 1], [headers[r]]))
+                di += 1
+            else:
+                parts.append(fmt.format_sparse(vals[r:r + 1], idx[r:r + 1],
+                                               [headers[r]]))
+        return b"".join(parts)
 
     def pretty_hits_batch(self, q_sketches: np.ndarray,
                           headers: list[str]) -> bytes | None:

@@ -9,8 +9,8 @@ is reused. Nothing here runs at import: the CPU-only test machine imports
 every module and has no ``nvcc``.
 
 Each kernel wrapper (``ops.psort.sort_i32_pow2_batch``,
-``ops.bcount._bcount_call``) adds one to ``LAUNCHES[name]`` where it
-launches its kernel, and nowhere else.
+``ops.bcount._bcount_call``, ``ops.pcount._count_call``) adds one to
+``LAUNCHES[name]`` where it launches its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -27,10 +27,10 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "niqki_tpu_torch")
-SOURCES = ("psort.cu", "bcount.cu")
+SOURCES = ("psort.cu", "bcount.cu", "pcount.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-LAUNCHES = {"psort": 0, "bcount": 0}
+LAUNCHES = {"psort": 0, "bcount": 0, "pcount": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -70,24 +70,41 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless the library for these sources exists.
-    Returns the library's path; the compiler's report (``-Xptxas -v``:
-    registers, shared memory, spills per kernel) is kept beside it as
-    ``.log``."""
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc`` per source, all started together, then one link. Returns
+    the library's path; the compiler's report (``-Xptxas -v``: registers,
+    shared memory, spills per kernel) is kept beside it as ``.log``."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *[os.path.join(CSRC_DIR, s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    tmp = f"{so}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+             "-fPIC", "-Xptxas", "-v", "-o", o, os.path.join(CSRC_DIR, s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    steps = [(c, p.communicate()[0], p.returncode)
+             for c, p in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in steps):
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", f"{tmp}.tmp", *objs]
+        res = subprocess.run(link, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        steps.append((link, res.stdout, res.returncode))
     with open(so[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+        for c, text, _ in steps:
+            f.write(" ".join(c) + "\n" + text)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [(c, text, rc) for c, text, rc in steps if rc != 0]
+    if failed:
+        c, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{text}")
+    os.replace(f"{tmp}.tmp", so)
     return so
 
 
@@ -102,6 +119,8 @@ def library():
             lib.niqki_psort_i32.argtypes = [vp, vp, i64, i32, i32, vp]
             lib.niqki_bcount.restype = i32
             lib.niqki_bcount.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp]
+            lib.niqki_pcount.restype = i32
+            lib.niqki_pcount.argtypes = [vp, vp, vp, i32, i64, i64, vp]
             lib.niqki_cuda_error_string.restype = ctypes.c_char_p
             lib.niqki_cuda_error_string.argtypes = [i32]
             _lib = lib

@@ -1,0 +1,346 @@
+"""ctypes bindings of the native host library (``native/niqki_host.cpp``).
+
+The port's counterpart of ``niqki_tpu/native.py``, binding only the entry
+points the port calls: the packed FASTA/FASTQ reader, densify, the host
+whole-file sketcher, the host equality count and the matrix and hit
+formatters. The library is built from the repository's ``native/`` at first
+use (``make -C native``). Its Makefile probes for libdeflate with
+``printf '\\#include <libdeflate.h>'``, which keeps the backslash under GNU
+make 4.3+ and so passes where libdeflate is absent; when that build leaves
+no library, it is built once more with ``HAVE_DEFLATE=0`` (zlib only, the
+same decompressed bytes). Where no library can be built or loaded, callers
+take the pure-Python paths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator, Tuple
+
+import numpy as np
+
+from . import hostmem
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
+_SO_PATH = os.path.join(_NATIVE_DIR, "libniqki_host.so")
+_ABI_VERSION = 11
+
+_lib = None
+_tried = False
+_lock = threading.Lock()
+
+
+def _build() -> None:
+    for extra in ([], ["HAVE_DEFLATE=0"]):
+        if os.path.exists(_SO_PATH):
+            return
+        try:
+            subprocess.run(["make", "-C", _NATIVE_DIR, "-s", *extra],
+                           capture_output=True, timeout=300, check=False)
+        except (OSError, subprocess.TimeoutExpired):
+            return          # no make: the pure-Python host paths serve
+
+
+def _bind(lib) -> None:
+    vp, i64 = ctypes.c_void_p, ctypes.c_int64
+    arr = np.ctypeslib.ndpointer
+    i32c = arr(np.int32, flags="C_CONTIGUOUS")
+    i64c = arr(np.int64, flags="C_CONTIGUOUS")
+    u32c = arr(np.uint32, flags="C_CONTIGUOUS")
+    lib.nq_abi_version.restype = i64
+    lib.nq_abi_version.argtypes = []
+    lib.nq_reader_open.restype = vp
+    lib.nq_reader_open.argtypes = [ctypes.c_char_p, i64, ctypes.c_int]
+    lib.nq_reader_close.restype = None
+    lib.nq_reader_close.argtypes = [vp]
+    lib.nq_reader_next_packed.restype = ctypes.c_int
+    lib.nq_reader_next_packed.argtypes = [
+        vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(i64),
+        ctypes.POINTER(vp), ctypes.POINTER(i64), ctypes.POINTER(vp),
+        ctypes.POINTER(i64), ctypes.POINTER(i64)]
+    lib.nq_densify.restype = None
+    lib.nq_densify.argtypes = [i32c, i64]
+    lib.nq_sketch_packed_whole.restype = None
+    lib.nq_sketch_packed_whole.argtypes = [u32c, i64c, i64c, i32c, i64c] \
+        + [i64] * 7 + [i32c]
+    lib.nq_count_eq.restype = None
+    lib.nq_count_eq.argtypes = [i32c, i64, i32c, i64, i64, i64, i32c]
+    lib.nq_format_hits.restype = i64
+    lib.nq_format_hits.argtypes = [
+        i32c, i64, i64, i64, i64, ctypes.c_char_p, i64c, ctypes.c_char_p,
+        i64c, ctypes.c_char_p, i64]
+    lib.nq_format_hits_sparse.restype = i64
+    lib.nq_format_hits_sparse.argtypes = [
+        i32c, i32c, i64, i64, i64, i64, i64, ctypes.c_char_p, i64c,
+        ctypes.c_char_p, i64c, ctypes.c_char_p, i64]
+    lib.nq_format_matrix_sparse.restype = i64
+    lib.nq_format_matrix_sparse.argtypes = [
+        i32c, i32c, i64, i64, i64, i64, i64, ctypes.c_char_p, i64c, i64,
+        ctypes.c_char_p, i64]
+    lib.nq_format_matrix_dense.restype = i64
+    lib.nq_format_matrix_dense.argtypes = [
+        arr(np.uint16, flags="C_CONTIGUOUS"), i64, i64, i64, i64,
+        ctypes.c_char_p, i64c, i64, ctypes.c_char_p, i64]
+
+
+def _load():
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        _build()
+        try:
+            lib = ctypes.CDLL(_SO_PATH)
+        except OSError:     # absent, or built for another machine
+            return None
+        _bind(lib)
+        if lib.nq_abi_version() != _ABI_VERSION:
+            return None
+        _lib = lib
+        return _lib
+
+
+def available() -> bool:
+    """Whether the native library is loaded (built at the first call)."""
+    return _load() is not None
+
+
+def _require():
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    return lib
+
+
+def read_packed_records(path: str, K: int, ftype: str | None = None
+                        ) -> Iterator[Tuple[str, np.ndarray, int, np.ndarray]]:
+    """Yield (header, packed_words, n_bases, exc_idx) per record (len > K).
+
+    packed_words: uint32, base i's forward code in bits 2*(i%16) of word
+    i//16. exc_idx: int32 positions (>= K-1) where the true reverse-
+    complement code is 0 instead of the derived 3 - fwd (non-ACGT)."""
+    lib = _require()
+    ft = {None: 0, "A": 1, "Q": 2}[ftype]
+    h = lib.nq_reader_open(path.encode(), K, ft)
+    if not h:
+        raise OSError(f"cannot open {path}")
+    try:
+        hdr = ctypes.c_char_p()
+        hlen, nw, ne, slen = (ctypes.c_int64() for _ in range(4))
+        pw, pe = ctypes.c_void_p(), ctypes.c_void_p()
+        while lib.nq_reader_next_packed(
+                h, ctypes.byref(hdr), ctypes.byref(hlen), ctypes.byref(pw),
+                ctypes.byref(nw), ctypes.byref(pe), ctypes.byref(ne),
+                ctypes.byref(slen)) == 1:
+            words = np.ctypeslib.as_array(
+                ctypes.cast(pw, ctypes.POINTER(ctypes.c_uint32)),
+                (nw.value,)).copy()
+            if ne.value:
+                exc = np.ctypeslib.as_array(
+                    ctypes.cast(pe, ctypes.POINTER(ctypes.c_int32)),
+                    (ne.value,)).copy()
+            else:
+                exc = np.zeros(0, np.int32)
+            header = ctypes.string_at(hdr, hlen.value).decode(
+                "utf-8", "replace")
+            yield header, words, slen.value, exc
+    finally:
+        lib.nq_reader_close(h)
+
+
+def _concat_recs(recs):
+    """(words, word_off, n_bases, exc, exc_off) concatenated wire arrays of
+    packed (words, n_bases, exc_idx) records."""
+    B = len(recs)
+    words = np.concatenate([np.ascontiguousarray(r[0], np.uint32)
+                            for r in recs])
+    word_off = np.zeros(B + 1, np.int64)
+    np.cumsum([len(r[0]) for r in recs], out=word_off[1:])
+    n_bases = np.array([r[1] for r in recs], np.int64)
+    excs = [np.ascontiguousarray(r[2], np.int32) for r in recs]
+    exc = np.concatenate(excs) if any(len(e) for e in excs) \
+        else np.zeros(1, np.int32)
+    exc_off = np.zeros(B + 1, np.int64)
+    np.cumsum([len(e) for e in excs], out=exc_off[1:])
+    return words, word_off, n_bases, exc, exc_off
+
+
+def sketch_packed_whole(recs, lF: int, K: int, W: int, H: int,
+                        mask_M: int, max_rem: int) -> np.ndarray:
+    """Whole-file sketch of packed (words, n_bases, exc_idx) records: the
+    per-record min-merge with densify after each record, on the host's
+    rolling sketcher. The GIL is released."""
+    lib = _require()
+    out = np.empty(1 << lF, np.int32)
+    if not recs:
+        out.fill(-1)
+        return out
+    lib.nq_sketch_packed_whole(*_concat_recs(recs), len(recs), K, lF, W, H,
+                               mask_M, max_rem, out)
+    return out
+
+
+def densify(sketch: np.ndarray) -> None:
+    """In-place densification of one (F,) int32 sketch (-1 empty)."""
+    lib = _require()
+    if sketch.dtype != np.int32 or not sketch.flags.c_contiguous:
+        raise ValueError("densify takes a contiguous int32 sketch")
+    lib.nq_densify(sketch, sketch.shape[0])
+
+
+def count_eq(q: np.ndarray, mat: np.ndarray, fp_range: int) -> np.ndarray:
+    """Host equality counts (Q, G) int32 of raw query sketches q (Q, F)
+    against the stored-side matrix mat (G, F) (bad slots already -2), with
+    the reference's query-side range guard (out-of-range query fingerprints
+    match nothing) applied in C++. Blocks of queries run on a thread pool
+    (the C call releases the GIL)."""
+    lib = _require()
+    q = np.ascontiguousarray(q, np.int32)
+    mat = np.ascontiguousarray(mat, np.int32)
+    Q, F = q.shape
+    G = mat.shape[0]
+    if mat.shape[1] != F:
+        raise ValueError(f"query width {F} != index width {mat.shape[1]}")
+    out = hostmem.big_empty((Q, G), np.int32)
+    if Q == 0 or G == 0:
+        return out
+    threads = min(8, os.cpu_count() or 1)
+    block = max(64, -(-Q // threads))
+    if Q <= block:
+        lib.nq_count_eq(q, Q, mat, G, F, fp_range, out)
+        return out
+
+    def run(lo: int) -> None:
+        hi = min(lo + block, Q)
+        lib.nq_count_eq(q[lo:hi], hi - lo, mat, G, F, fp_range, out[lo:hi])
+
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        list(ex.map(run, range(0, Q, block)))
+    return out
+
+
+class _FmtBuf:
+    """Grow-only output buffer reused across a formatter's calls (a fresh
+    buffer per block would be zeroed and first-touched every time)."""
+
+    def __init__(self):
+        self._cap = 0
+        self._buf = None
+
+    def get(self, cap: int):
+        if cap > self._cap:
+            self._cap = max(cap, self._cap * 2)
+            self._buf = ctypes.create_string_buffer(self._cap)
+        return self._buf
+
+
+class _Names:
+    """The index's names as one blob with offsets, kept across blocks."""
+
+    def __init__(self, names, F: int, min_score: int):
+        self._lib = _require()
+        self.F = F
+        self.min_score = min_score
+        blobs = [str(n).encode() for n in names]
+        self._names = b"".join(blobs)
+        self._name_off = np.zeros(len(blobs) + 1, np.int64)
+        np.cumsum([len(b) for b in blobs], out=self._name_off[1:])
+        self._max_name = max((len(b) for b in blobs), default=0)
+        self.G = len(blobs)
+        self._obuf = _FmtBuf()
+
+    @staticmethod
+    def _headers(headers):
+        hb = [h.encode() for h in headers]
+        hoff = np.zeros(len(hb) + 1, np.int64)
+        np.cumsum([len(b) for b in hb], out=hoff[1:])
+        return b"".join(hb), hoff
+
+
+class HitsFormatter(_Names):
+    """Pretty-hit rows formatted in C++, byte-identical with
+    ``io.writers.write_pretty_hits`` over ``index.hits_from_counts``."""
+
+    def format(self, counts: np.ndarray, headers: list[str]) -> bytes:
+        counts = np.ascontiguousarray(counts, np.int32)
+        B, G = counts.shape
+        if G != self.G or B != len(headers):
+            raise ValueError(f"counts {counts.shape} for {self.G} names and "
+                             f"{len(headers)} headers")
+        hblob, hoff = self._headers(headers)
+        nhits = int((counts >= self.min_score).sum())
+        cap = len(hblob) + 2 * B + nhits * (self._max_name + 16) + 64
+        out = self._obuf.get(cap)
+        n = self._lib.nq_format_hits(counts, B, G, self.min_score, self.F,
+                                     self._names, self._name_off, hblob,
+                                     hoff, out, cap)
+        if n < 0:
+            raise RuntimeError("nq_format_hits capacity underestimated")
+        return ctypes.string_at(out, n)
+
+    def format_sparse(self, vals: np.ndarray, idx: np.ndarray,
+                      headers: list[str]) -> bytes:
+        """Rows from top-k (vals, idx) (B, cap) survivors: byte-identical
+        with format() whenever each row's survivors fit in cap (callers
+        re-fetch overflowing rows dense)."""
+        vals = np.ascontiguousarray(vals, np.int32)
+        idx = np.ascontiguousarray(idx, np.int32)
+        B, kcap = vals.shape
+        if B != len(headers):
+            raise ValueError(f"{B} rows for {len(headers)} headers")
+        hblob, hoff = self._headers(headers)
+        nhits = int((vals >= self.min_score).sum())
+        cap = len(hblob) + 2 * B + nhits * (self._max_name + 16) + 64
+        out = self._obuf.get(cap)
+        n = self._lib.nq_format_hits_sparse(
+            vals, idx, B, kcap, self.G, self.min_score, self.F,
+            self._names, self._name_off, hblob, hoff, out, cap)
+        if n < 0:
+            raise RuntimeError("nq_format_hits_sparse failed: capacity or "
+                               "survivor contract violated")
+        return ctypes.string_at(out, n)
+
+
+class MatrixFormatter(_Names):
+    """All-vs-all matrix rows formatted in C++, byte-identical with
+    ``io.writers.write_matrix_row`` over full count rows: from top-k
+    survivors (min_score >= 1) or from dense (B, G) uint16 wrapped
+    counts."""
+
+    def format_sparse(self, vals: np.ndarray, idx: np.ndarray,
+                      row0: int) -> bytes:
+        vals = np.ascontiguousarray(vals, np.int32)
+        idx = np.ascontiguousarray(idx, np.int32)
+        B, cap = vals.shape
+        nsurv = int((vals >= self.min_score).sum())
+        out_cap = 2 * B * self.G + nsurv * 14 + B * (self._max_name + 4) + 64
+        out = self._obuf.get(out_cap)
+        n = self._lib.nq_format_matrix_sparse(
+            vals, idx, B, cap, self.G, self.F, self.min_score,
+            self._names, self._name_off, row0, out, out_cap)
+        if n < 0:
+            raise RuntimeError(f"nq_format_matrix_sparse failed ({n}): "
+                               "capacity or survivor contract violated")
+        return ctypes.string_at(out, n)
+
+    def format_dense(self, counts: np.ndarray, row0: int) -> bytes:
+        counts = np.ascontiguousarray(counts, np.uint16)
+        B, G = counts.shape
+        if G != self.G:
+            raise ValueError(f"{G} columns for {self.G} names")
+        nnz = int((counts >= max(self.min_score, 1)).sum())
+        out_cap = 2 * B * G + nnz * 14 + B * (self._max_name + 4) + 64
+        out = self._obuf.get(out_cap)
+        n = self._lib.nq_format_matrix_dense(
+            counts, B, G, self.F, self.min_score,
+            self._names, self._name_off, row0, out, out_cap)
+        if n < 0:
+            raise RuntimeError("nq_format_matrix_dense capacity "
+                               "underestimated")
+        return ctypes.string_at(out, n)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..hostmem import big_copy, pad_rows
 
 TILE_G = 128        # index rows are padded to a multiple of this
 BLOCK_Q = 96        # queries per count dispatch
@@ -66,19 +67,6 @@ def pack_bitplanes(mat: torch.Tensor, *, W: int, query: bool) -> torch.Tensor:
     return torch.stack(planes)
 
 
-def pad_rows(mat16: np.ndarray, tile: int = TILE_G) -> np.ndarray:
-    """Pad index rows to a ``tile`` multiple with the never-matching -2."""
-    G, F = mat16.shape
-    Gp = -(-G // tile) * tile
-    if Gp == G:
-        return mat16
-    from niqki_tpu.hostmem import big_empty
-    out = big_empty((Gp, F), mat16.dtype)
-    out[:G] = mat16
-    out[G:] = -2
-    return out
-
-
 def build_index_planes(mat: np.ndarray, W: int, device,
                        row_chunk: int | None = None,
                        sanitized: bool = False) -> torch.Tensor:
@@ -86,11 +74,10 @@ def build_index_planes(mat: np.ndarray, W: int, device,
     Rows ship and pack in chunks, so the unpacked form on the device stays
     one chunk. ``sanitized=True`` promises values in [-2, 2^W), which makes
     an int16 wire lossless for W <= 14."""
-    m = pad_rows(np.asarray(mat))
+    m = pad_rows(np.asarray(mat), TILE_G)
     if row_chunk is None:
         row_chunk = max(TILE_G, (1 << 26) // m.shape[1])
     if sanitized and W <= 14 and m.dtype != np.int16:
-        from niqki_tpu.hostmem import big_copy
         m = big_copy(m, np.int16)
     chunks = [pack_bitplanes(torch.from_numpy(
                   np.ascontiguousarray(m[lo:lo + row_chunk])).to(device),

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from niqki_tpu_torch import kernels
-from niqki_tpu_torch.ops import bcount, psort
+from niqki_tpu_torch.ops import bcount, pcount, psort
 
 pytestmark = pytest.mark.cuda
 
@@ -64,3 +64,32 @@ def test_bcount_rejects_misaligned_lanes(card):
     qp = torch.zeros((13, 4, 12), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="L % 8"):
         bcount._bcount_call(qp, qp)
+
+
+@pytest.mark.parametrize("Qb,G,F", [
+    (64, 4096, 1024), (64, 102400, 1024), (64, 4096, 2048), (7, 200, 256),
+    (100, 300, 512), (1, 65, 64), (130, 4096, 1024)])
+def test_pcount_kernel_matches_plain(card, Qb, G, F):
+    """K3 at the main path's shapes (64 queries against G = 4096 and
+    102,400 at S = 10, and S = 11) and ragged edges; clustered rows so
+    counts reach F, stored -2 and query -3 sentinels, negative halves."""
+    rng = np.random.default_rng(Qb * 7 + G + F)
+    g = rng.integers(-2, 1 << 14, (G, F)).astype(np.int16)
+    g[: min(G, 50)] = g[0]
+    q = rng.integers(-3, 1 << 14, (Qb, F)).astype(np.int16)
+    q[0] = g[0]
+    q[-1, : F // 2] = g[1, : F // 2]
+    q[q == -2] = -3
+    xp = pcount.pack_rows(torch.from_numpy(g).to(card))
+    qp = pcount.pack_rows(torch.from_numpy(q).to(card))
+    before = kernels.LAUNCHES["pcount"]
+    got = pcount._count_call(qp, xp)
+    assert kernels.LAUNCHES["pcount"] == before + 1
+    assert torch.equal(got, pcount._count_plain(qp, xp))
+    assert int(got[0, 0]) == F and int(got.max()) == F
+
+
+def test_pcount_rejects_misaligned_lanes(card):
+    qp = torch.zeros((4, 48), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="Fp % 32"):
+        pcount._count_call(qp, qp)
