@@ -16,6 +16,8 @@ Phases (any failure raises and exits non-zero):
      queries, P = 13 and 17); K3 (pcount) with 64 queries against (a) 4096
      rows at S = 10 (the -M / -Q shape), (b) 102,400 rows at S = 10 (a
      100k-genome index, 210 MB of int16) and (c) 4096 rows at S = 11.
+     K2's and K3's library time is F - torch.cdist(p=0) over float copies
+     of the same fingerprints, which must equal the kernel's counts.
   3. the golden matrix: -M tests/fixtures/fof_tiny.txt -S 16 -K 21 through
      the self-join must equal tests/fixtures/matrix_s16_tiny.gz.
   4. the main path at full size: -M over 4096 synthetic 100 kb genomes
@@ -109,6 +111,14 @@ def time_cuda(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def cdist_counts(qf, xf):
+    """The library yardstick of K2 and K3, one PyTorch call: equal
+    fingerprints per (query, row) as F minus torch.cdist's p=0 (Hamming)
+    distance over float copies of the fingerprints (exact below 2^24)."""
+    import torch
+    return qf.shape[1] - torch.cdist(qf, xf, p=0)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 
@@ -164,14 +174,17 @@ def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
     q = g[rng.choice(G, Qb, replace=False)].copy()
     q[:8] = g[0]
     q[rng.random(q.shape) < 0.05] = -3
-    xp = bcount.pack_bitplanes(torch.from_numpy(g).cuda(), W=W, query=False)
-    shapes = [("-Q", bcount.pack_bitplanes(torch.from_numpy(q).cuda(), W=W,
-                                           query=True))]
+    gd = torch.from_numpy(g).cuda()
+    xp = bcount.pack_bitplanes(gd, W=W, query=False)
+    shapes = [("-Q", q, bcount.pack_bitplanes(torch.from_numpy(q).cuda(),
+                                              W=W, query=True))]
     if matrix_shape:
-        shapes.append(("-M", bcount._planes_as_queries(
-            xp, 0, bcount.MATRIX_BLOCK).contiguous()))
+        B = bcount.MATRIX_BLOCK
+        shapes.append(("-M", g[:B], bcount._planes_as_queries(
+            xp, 0, B).contiguous()))
+    xf = gd.float()
     out = []
-    for path, qp in shapes:
+    for path, qsrc, qp in shapes:
         got = bcount._bcount_call(qp, xp)
         want = bcount._bcount_plain(qp, xp)
         torch.cuda.synchronize()
@@ -179,14 +192,20 @@ def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
         require(err == 0 and torch.equal(got, want),
                 f"K2 differs from its plain version at P={P}, {path} shape")
         require(int(got.max()) > F // 2, "K2 check saw no real matches")
+        # a query's invalid slot matches nothing: -3, unlike the stored -2
+        qf = torch.from_numpy(np.where(qsrc < 0, -3, qsrc)).cuda().float()
+        require(torch.equal(cdist_counts(qf, xf).to(torch.int32), got),
+                f"F - cdist(p=0) differs from K2 at P={P}, {path} shape")
         ms = time_cuda(lambda: bcount._bcount_call(qp, xp))
         plain_ms = time_cuda(lambda: bcount._bcount_plain(qp, xp), reps=5,
                              warmup=1)
+        library_ms = time_cuda(lambda: cdist_counts(qf, xf), reps=5,
+                               warmup=1)
         Qb, L = qp.shape[1], F // 32
         # per (query, row, lane): P XNOR-ANDs, a popcount and an add
         out.append({"path": path, "shape": f"P={P} Qb={Qb} G={G} L={L}",
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": None,
+                    "library_ms": library_ms,
                     **bound(4 * (P * Qb * L + P * G * L + Qb * G),
                             Qb * G * L * (P + 2))})
     return out
@@ -209,9 +228,9 @@ def check_pcount(Gx: int, S_: int) -> dict:
     q = g[rng.choice(Gx, Qb, replace=False)].copy()
     q[rng.integers(0, 20, q.shape, dtype=np.int8) == 0] = -3
     q[:8] = g[0]
-    xp = pcount.pack_rows(torch.from_numpy(pad_rows(g, pcount.TILE_G))
-                          .cuda())
-    qp = pcount.pack_rows(torch.from_numpy(q).cuda())
+    gd = torch.from_numpy(pad_rows(g, pcount.TILE_G)).cuda()
+    qd = torch.from_numpy(q).cuda()
+    xp, qp = pcount.pack_rows(gd), pcount.pack_rows(qd)
     got = pcount._count_call(qp, xp)
     want = pcount._count_plain(qp, xp)
     torch.cuda.synchronize()
@@ -220,13 +239,18 @@ def check_pcount(Gx: int, S_: int) -> dict:
             f"K3 differs from its plain version at G={Gx}, F={F}")
     require(int(got.max()) == F and int((got > F // 4).sum()) > 8 * 64,
             "K3 check saw no clusters")
+    qf, xf = qd.float(), gd.float()
+    require(torch.equal(cdist_counts(qf, xf).to(torch.int32), got),
+            f"F - cdist(p=0) differs from K3 at G={Gx}, F={F}")
     ms = time_cuda(lambda: pcount._count_call(qp, xp))
     plain_ms = time_cuda(lambda: pcount._count_plain(qp, xp), reps=5,
                          warmup=1)
+    library_ms = time_cuda(lambda: cdist_counts(qf, xf), reps=5, warmup=1)
+    del qf, xf
     Gp, Fp = xp.shape
     # per (query, row, pair lane): an xor, a test of each half, an add
     return {"shape": f"Qb={Qb} G={Gx} F={F}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             **bound(4 * (Qb * Fp + Gp * Fp + Qb * Gp), 4 * Qb * Gp * Fp)}
 
 
@@ -549,12 +573,10 @@ def main() -> int:
         kernel_entry("pcount _count_call (K3, shape a, -Q)", *k3_src,
                      q10["pcount"], k3["a"],
                      launches_from="phase 7, -I/-Q -S 10"),
-        kernel_entry("pcount _count_call (K3, shape b)", *k3_src,
-                     m10["pcount"], k3["b"],
-                     launches_from="phase 6, -M -S 10, at shape a"),
-        kernel_entry("pcount _count_call (K3, shape c)", *k3_src,
-                     m10["pcount"], k3["c"],
-                     launches_from="phase 6, -M -S 10, at shape a"),
+        kernel_entry("pcount _count_call (K3, shape b)", *k3_src, 0, k3["b"],
+                     launches_from="not on the main path (phase 2 only)"),
+        kernel_entry("pcount _count_call (K3, shape c)", *k3_src, 0, k3["c"],
+                     launches_from="not on the main path (phase 2 only)"),
     ], "build_s": build_s, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

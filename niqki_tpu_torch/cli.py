@@ -170,8 +170,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Save the native sharded checkpoint.")
     f.add_argument("--load-sharded", metavar="<dir>",
                    help="Load a native sharded checkpoint.")
-    f.add_argument("--shards", type=int, default=1,
-                   help="Shard count for --save-sharded.")
     x = ap.add_argument_group("Other")
     x.add_argument("-Iddl", "--indexdownload", metavar="<file>",
                    help="List of NCBI accessions to download and index "

@@ -29,6 +29,9 @@ from .ops import bcount, pcount
 from .ops.sketch import INT32_MAX, dispatch_sketch_packed_batch, pack_codes
 from .params import SketchParams
 
+# NIQKI_TPU_COUNT values the port routes (mxu is refused as not ported)
+COUNT_MODES = ("auto", "host", "bcount", "pcount", "xla")
+
 
 def _densify(sketch: np.ndarray, p: SketchParams) -> None:
     """In-place densification: native C++ when built, the oracle otherwise."""
@@ -341,9 +344,8 @@ class SketchIndex:
         (default 2048) under auto; the bit-plane kernel K2 for G >= 4096
         (or when asked) under its shape gate; the pair-packed kernel K3 for
         G >= 4096, W <= 14 and its shape gate (the S <= 11 indexes);
-        otherwise a plain torch blocked count. NIQKI_TPU_NO_PCOUNT forces
-        the blocked count. ``bcount-interpret`` means ``bcount`` here: on
-        the CPU the kernel wrappers run their plain versions anyway."""
+        otherwise a plain torch blocked count, which ``xla`` forces. Any
+        other mode raises."""
         raw = np.atleast_2d(np.asarray(q_sketches, np.int32))
         if self.G == 0:
             return np.zeros((len(raw), 0), np.int32)
@@ -358,6 +360,9 @@ class SketchIndex:
         if mode == "mxu":
             raise NotImplementedError("NIQKI_TPU_COUNT=mxu: that count route "
                                       "is not ported yet")
+        if mode not in COUNT_MODES:
+            raise ValueError(f"NIQKI_TPU_COUNT={mode}: not one of "
+                             f"{', '.join(COUNT_MODES)}")
         host_max_g = int(os.environ.get("NIQKI_TPU_HOST_COUNT_G", "2048"))
         if native.available() and (
                 mode == "host" or (mode == "auto" and self.G <= host_max_g)):
@@ -367,9 +372,7 @@ class SketchIndex:
                                    self.params.fingerprint_range)
         p = self.params
         q = self._query_side(raw)
-        if os.environ.get("NIQKI_TPU_NO_PCOUNT"):
-            mode = "xla"
-        want_b = mode in ("bcount", "bcount-interpret") or (
+        want_b = mode == "bcount" or (
             mode == "auto" and self.G >= 4096)
         if want_b and bcount.available(p.F, p.W):
             return bcount.match_counts_planes(q, self._planes(), self.G, p.W,
@@ -439,7 +442,7 @@ class SketchIndex:
                 or p.min_score < 1 or not bcount.available(p.F, p.W)):
             return None
         mode = os.environ.get("NIQKI_TPU_COUNT", "auto")
-        if mode not in ("auto", "bcount", "bcount-interpret"):
+        if mode not in ("auto", "bcount"):
             return None
         cap = min(self.G, int(os.environ.get("NIQKI_TPU_HITS_CAP", "2048")))
         if cap < 1 or self.G < 4096:

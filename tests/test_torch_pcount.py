@@ -167,11 +167,11 @@ def test_counts_route_pcount(monkeypatch, s8_index):
 
 @pytest.mark.parametrize("case", ["no_pcount", "W16"])
 def test_counts_route_blocked(monkeypatch, case, s8_index):
-    """NIQKI_TPU_NO_PCOUNT, and W = 16 (int16 no longer lossless), take the
-    blocked count."""
+    """NIQKI_TPU_COUNT=xla (the one knob that keeps K3 off), and W = 16
+    (int16 no longer lossless), take the blocked count."""
     jidx = s8_index
     if case == "no_pcount":
-        monkeypatch.setenv("NIQKI_TPU_NO_PCOUNT", "1")
+        monkeypatch.setenv("NIQKI_TPU_COUNT", "xla")
     else:
         p = SketchParams(lF=8, K=21, W=16)
         rng = np.random.default_rng(5)
@@ -185,6 +185,24 @@ def test_counts_route_blocked(monkeypatch, case, s8_index):
     np.testing.assert_array_equal(tidx.counts(q), want)
     assert spy.calls == ["_counts_blocked"]
     assert tidx._device_packed is None
+
+
+@pytest.mark.parametrize("mode", ["bcount-interpret", "blocked"])
+def test_counts_unknown_mode_raises(monkeypatch, mode, s8_index):
+    """A count mode the port does not route raises instead of quietly
+    taking the plain blocked count."""
+    monkeypatch.setenv("NIQKI_TPU_COUNT", mode)
+    tidx = SketchIndex.from_jax(s8_index, device="cpu")
+    with pytest.raises(ValueError, match="not one of auto, host"):
+        tidx.counts(_queries(s8_index, n=2))
+
+
+def test_cli_rejects_shards(capsys):
+    """--shards belongs to the unported sharded checkpoint: the port's
+    parser does not know it."""
+    assert cli.main(["-M", f"{FIXDIR}/fof_tiny.txt", "--shards", "4",
+                     "--device", "cpu"]) == 1
+    assert "Bad usage" in capsys.readouterr().out
 
 
 def test_insert_resets_packed_cache(s8_index):
