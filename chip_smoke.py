@@ -9,8 +9,11 @@ Phases (any failure raises and exits non-zero):
      native host library must load.
   2. each kernel against its plain PyTorch version on the card, exactly, at
      the shapes the main path gives it, with median times of both:
-     K1 (psort) at 256 x 2^17 (a batch of 100 kb records) and 1 x 2^23
-     (an E. coli-sized record); K2 (bcount) against 4096 index rows of
+     K1 (psort) at 256 x 2^17 (a batch of 100 kb records), 1 x 2^23 (an
+     E. coli-sized record) and 6 x 2^23 (six 4.6 Mbp records, as
+     dispatch_sketch_packed_batch batches them), each with the device time
+     of its three launches (radix_hist, radix_scan, radix_scatter) from
+     torch.profiler; K2 (bcount) against 4096 index rows of
      1024 lanes at the -M shape (768 index rows re-encoded as queries, one
      MATRIX_BLOCK of the self-join, P = 13) and at the -Q shape (96 packed
      queries, P = 13 and 17); K3 (pcount) with 64 queries against (a) 4096
@@ -140,22 +143,48 @@ def record_keys(B: int, n_bases: int, Np: int, seed: int):
                                    value=sketch.INT32_MAX).contiguous()
 
 
+def psort_parts(keys, reps: int = 5) -> dict | None:
+    """Device ms per sort of each of K1's three kernels (four launches of
+    each), summed from a torch.profiler trace of ``reps`` sorts; None where
+    the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from niqki_tpu_torch.ops import psort
+    psort.sort_i32_pow2_batch(keys)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            psort.sort_i32_pow2_batch(keys)
+        torch.cuda.synchronize()
+    parts = dict.fromkeys(("radix_hist", "radix_scan", "radix_scatter"), 0.0)
+    for e in prof.key_averages():
+        for name in parts:
+            if name in e.key:
+                parts[name] += e.device_time_total / reps / 1e3
+    return parts if any(parts.values()) else None
+
+
 def check_psort(B: int, n_bases: int, Np: int) -> dict:
     import torch
     from niqki_tpu_torch.ops import psort
     keys = record_keys(B, n_bases, Np, seed=B)
+    before = keys.clone()
     got = psort.sort_i32_pow2_batch(keys)
     want = psort.sort_plain(keys)
     torch.cuda.synchronize()
     err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
     require(err == 0 and torch.equal(got, want),
             f"K1 differs from torch.sort at {B}x{Np}")
+    require(torch.equal(keys, before), f"K1 wrote its input at {B}x{Np}")
+    del before
     ms = time_cuda(lambda: psort.sort_i32_pow2_batch(keys))
     plain_ms = time_cuda(lambda: psort.sort_plain(keys))
-    # read + write of every key; a comparison sort needs N log2 N compares
+    # read + write of every key; four digit passes, each extracting,
+    # ranking and placing every key: 4 x 4 int32 operations a key
     return {"shape": f"{B}x{Np}", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "library_ms": plain_ms,
-            **bound(2 * B * Np * 4, B * Np * (Np.bit_length() - 1))}
+            "parts_ms": psort_parts(keys),
+            **bound(2 * B * Np * 4, 16 * B * Np)}
 
 
 def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
@@ -506,9 +535,11 @@ def main() -> int:
     require(native.available(), "native host library did not build")
 
     # ---- phase 2
-    k1 = check_psort(256, LEN, 1 << 17)
-    log(f"phase 2: K1 psort {k1}")
-    log(f"phase 2: K1 psort {check_psort(1, 4_600_000, 1 << 23)}")
+    k1 = {B: check_psort(B, n, Np) for B, n, Np in
+          ((256, LEN, 1 << 17), (1, 4_600_000, 1 << 23),
+           (6, 4_600_000, 1 << 23))}
+    for e in k1.values():
+        log(f"phase 2: K1 psort {e}")
     k2 = {e["path"]: e for e in check_bcount(13, matrix_shape=True)}
     for e in k2.values():
         log(f"phase 2: K2 bcount {e}")
@@ -558,9 +589,15 @@ def main() -> int:
     k1_src = ("niqki_tpu_torch/csrc/psort.cu", "niqki_tpu/ops/psort.py:125")
     k2_src = ("niqki_tpu_torch/csrc/bcount.cu", "niqki_tpu/ops/bcount.py:103")
     k3_src = ("niqki_tpu_torch/csrc/pcount.cu", "niqki_tpu/ops/pcount.py:52")
+    ecoli = "not on the smoke's main path (E. coli-sized records)"
     print(json.dumps({"kernels": [
-        kernel_entry("psort sort_i32_pow2_batch (K1)", *k1_src,
-                     m15["psort"], k1, launches_from="phase 4, -M -S 15"),
+        kernel_entry("psort sort_i32_pow2_batch (K1, 256 x 2^17)", *k1_src,
+                     m15["psort"], k1[256],
+                     launches_from="phase 4, -M -S 15"),
+        kernel_entry("psort sort_i32_pow2_batch (K1, 1 x 2^23)", *k1_src, 0,
+                     k1[1], launches_from=ecoli),
+        kernel_entry("psort sort_i32_pow2_batch (K1, 6 x 2^23)", *k1_src, 0,
+                     k1[6], launches_from=ecoli),
         kernel_entry("bcount _bcount_call (K2, -M shape)", *k2_src,
                      m15["bcount"], k2["-M"],
                      launches_from="phase 4, -M -S 15"),

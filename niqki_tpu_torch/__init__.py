@@ -1,7 +1,7 @@
 """niqki_tpu_torch — the PyTorch/CUDA port of niqki_tpu.
 
 The same engine on an NVIDIA GPU: sketching is vectorized hashing plus a
-per-slot min (the bitonic sort kernel K1, ``csrc/psort.cu``), the index is a
+per-slot min (the radix sort kernel K1, ``csrc/psort.cu``), the index is a
 dense (G, F) fingerprint matrix held on the card as W+1 bit-planes (counted
 by the bit-plane kernel K2, ``csrc/bcount.cu``) or, where the bit-plane
 gate fails (S <= 11), as int16 fingerprints packed two per lane (counted by

@@ -116,7 +116,7 @@ def library():
             lib = ctypes.CDLL(build())
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
             lib.niqki_psort_i32.restype = i32
-            lib.niqki_psort_i32.argtypes = [vp, vp, i64, i32, i32, vp]
+            lib.niqki_psort_i32.argtypes = [vp, vp, vp, vp, i64, i32, vp]
             lib.niqki_bcount.restype = i32
             lib.niqki_bcount.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp]
             lib.niqki_pcount.restype = i32

@@ -25,20 +25,48 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("B,m,chunk_log", [
-    (1, 10, None), (3, 12, 10), (2, 13, 11), (5, 15, None), (3, 16, None),
-    (2, 17, None), (1, 18, 12), (4, 14, 1), (256, 17, None), (1, 23, None)])
-def test_psort_kernel_matches_plain(card, B, m, chunk_log):
+def _check_psort(xd, x):
+    """One launch, equal to torch.sort, input untouched."""
+    before = kernels.LAUNCHES["psort"]
+    got = psort.sort_i32_pow2_batch(xd)
+    assert kernels.LAUNCHES["psort"] == before + 1
+    assert torch.equal(got, psort.sort_plain(xd))
+    assert torch.equal(xd.cpu(), torch.from_numpy(x))
+
+
+@pytest.mark.parametrize("B,m", [
+    (1, 10), (3, 12), (2, 13), (5, 15), (3, 16), (2, 17), (1, 18), (4, 14),
+    (256, 17), (1, 23), (6, 23), (7, 10), (3, 11)])
+def test_psort_kernel_matches_plain(card, B, m):
+    """Random rows at every tile size (2^10 and 2^11 below one 4096-key
+    tile) up to the main path's 256 x 2^17 and 6 x 2^23."""
     rng = np.random.default_rng(m)
     x = rng.integers(-2**31, 2**31, (B, 1 << m)).astype(np.int32)
     if m == 14:
         x %= 5                                   # heavy duplicates
-    xd = torch.from_numpy(x).to(card)
-    before = kernels.LAUNCHES["psort"]
-    got = psort.sort_i32_pow2_batch(xd, chunk_log=chunk_log)
-    assert kernels.LAUNCHES["psort"] == before + 1
-    assert torch.equal(got, psort.sort_plain(xd))
-    assert torch.equal(xd.cpu(), torch.from_numpy(x))     # input untouched
+    _check_psort(torch.from_numpy(x).to(card), x)
+
+
+@pytest.mark.parametrize("kind", ["edges", "constant", "sketch_keys"])
+@pytest.mark.parametrize("m", [10, 17])
+def test_psort_kernel_special_rows(card, kind, m):
+    """Rows of INT32_MIN / INT32_MAX / -1 / 0 (the sign flip), rows of one
+    value (every key in one digit bucket each pass), and sketch-like keys
+    below 2^27 with 45% INT32_MAX padding (the skewed top digit)."""
+    rng = np.random.default_rng(len(kind) + m)
+    N = 1 << m
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    if kind == "edges":
+        x = rng.choice(np.array([lo, hi, -1, 0, lo + 1, hi - 1, 1, -2],
+                                np.int32), (4, N))
+        x[0] = rng.integers(lo, hi, N, dtype=np.int32)   # edges sprinkled
+        x[0, ::7], x[0, 1::7], x[0, 2::7], x[0, 3::7] = lo, hi, -1, 0
+    elif kind == "constant":
+        x = np.stack([np.full(N, v, np.int32) for v in (lo, -1, 0, hi, 12345)])
+    else:
+        x = rng.integers(0, 1 << 27, (3, N)).astype(np.int32)
+        x[rng.random(x.shape) < 0.45] = hi
+    _check_psort(torch.from_numpy(np.ascontiguousarray(x)).to(card), x)
 
 
 @pytest.mark.parametrize("P,Qb,G,L", [

@@ -117,13 +117,26 @@ def test_stale_constants_take_the_add_carry():
 
 @pytest.mark.parametrize("m,chunk_log", [(10, 10), (12, 10), (13, 11)])
 def test_sort_plain_matches_pallas(m, chunk_log):
+    """chunk_log sets the Pallas network's chunk and goes to the JAX side
+    only."""
     rng = np.random.default_rng(m)
     x = rng.integers(-2**31, 2**31, (2, 1 << m)).astype(np.int32)
     x[1, ::3] = 7                               # duplicates
     want = np.asarray(jpsort.sort_i32_pow2_batch(
         jnp.asarray(x), interpret=True, chunk_log=chunk_log))
-    got = psort.sort_i32_pow2_batch(torch.from_numpy(x), chunk_log=chunk_log)
+    got = psort.sort_i32_pow2_batch(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m", [10, 17, 23])
+def test_sort_plan(m):
+    """The radix sort's workspace: tiles of min(N, 4096) keys, a (B, N)
+    scratch buffer and one count per (row, digit, tile)."""
+    N = 1 << m
+    T, scratch, hist = psort._plan(6, N)
+    assert T == min(N, 4096)
+    assert scratch == (6, N)
+    assert hist == (6, 256, N // T)
 
 
 def test_sort_rejects_bad_shapes():
