@@ -16,9 +16,12 @@ Phases (any failure raises and exits non-zero):
      torch.profiler; K2 (bcount) against 4096 index rows of
      1024 lanes at the -M shape (768 index rows re-encoded as queries, one
      MATRIX_BLOCK of the self-join, P = 13) and at the -Q shape (96 packed
-     queries, P = 13 and 17); K3 (pcount) with 64 queries against (a) 4096
-     rows at S = 10 (the -M / -Q shape), (b) 102,400 rows at S = 10 (a
-     100k-genome index, 210 MB of int16) and (c) 4096 rows at S = 11.
+     queries, P = 13 and 17) and, off the main path, 96 queries against
+     102,400 rows (the 4096-row planes repeated 25 times on the card; the
+     counts must also equal the 4096-row counts tiled); K3 (pcount) with
+     64 queries against (a) 4096 rows at S = 10 (the -M / -Q shape), (b)
+     102,400 rows at S = 10 (a 100k-genome index, 210 MB of int16) and (c)
+     4096 rows at S = 11.
      K2's and K3's library time is F - torch.cdist(p=0) over float copies
      of the same fingerprints, which must equal the kernel's counts.
   3. the golden matrix: -M tests/fixtures/fof_tiny.txt -S 16 -K 21 through
@@ -187,12 +190,12 @@ def check_psort(B: int, n_bases: int, Np: int) -> dict:
             **bound(2 * B * Np * 4, 16 * B * Np)}
 
 
-def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
-    """K2 against its plain version over 4096 index rows of 1024 lanes
-    (S=15): at the -Q shape (96 queries packed from fingerprints, as
-    match_counts_planes ships them) and, with ``matrix_shape``, at the -M
-    shape (MATRIX_BLOCK index rows re-encoded as queries, as the self-join
-    sweep launches it)."""
+def bcount_inputs(P: int):
+    """4096 index rows of F = 32768 fingerprints (W = P - 1) with one
+    cluster of 64 equal rows and 1% stored -2 slots, and 96 queries drawn
+    from them with 5% query -3 slots, 8 of them copies of row 0: (index
+    fingerprints, the same on the card, query fingerprints, index planes,
+    query planes)."""
     import torch
     from niqki_tpu_torch.ops import bcount
     W, F, Qb = P - 1, 32768, bcount.BLOCK_Q
@@ -205,8 +208,42 @@ def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
     q[rng.random(q.shape) < 0.05] = -3
     gd = torch.from_numpy(g).cuda()
     xp = bcount.pack_bitplanes(gd, W=W, query=False)
-    shapes = [("-Q", q, bcount.pack_bitplanes(torch.from_numpy(q).cuda(),
-                                              W=W, query=True))]
+    qp = bcount.pack_bitplanes(torch.from_numpy(q).cuda(), W=W, query=True)
+    return g, gd, q, xp, qp
+
+
+def bcount_stats(qp, xp, qf, xf, err: int, plain_reps: int = 5) -> dict:
+    """Times of K2, its plain version and F - cdist(p=0) on one input, and
+    K2's bound: per (query, row, lane) P XNOR-ANDs, a popcount and an
+    add."""
+    import torch
+    from niqki_tpu_torch.ops import bcount
+    ms = time_cuda(lambda: bcount._bcount_call(qp, xp))
+    plain_ms = time_cuda(lambda: bcount._bcount_plain(qp, xp),
+                         reps=plain_reps, warmup=1)
+    library_ms = None if qf is None else time_cuda(
+        lambda: cdist_counts(qf, xf), reps=plain_reps, warmup=1)
+    P, Qb, L = qp.shape
+    Gx = xp.shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"shape": f"P={P} Qb={Qb} G={Gx} L={L}", "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "plan": bcount._plan(P, Qb, Gx, L, sms),
+            **bound(4 * (P * Qb * L + P * Gx * L + Qb * Gx),
+                    Qb * Gx * L * (P + 2))}
+
+
+def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
+    """K2 against its plain version over 4096 index rows of 1024 lanes
+    (S=15): at the -Q shape (96 queries packed from fingerprints, as
+    match_counts_planes ships them) and, with ``matrix_shape``, at the -M
+    shape (MATRIX_BLOCK index rows re-encoded as queries, as the self-join
+    sweep launches it)."""
+    import torch
+    from niqki_tpu_torch.ops import bcount
+    g, gd, q, xp, qp = bcount_inputs(P)
+    F = g.shape[1]
+    shapes = [("-Q", q, qp)]
     if matrix_shape:
         B = bcount.MATRIX_BLOCK
         shapes.append(("-M", g[:B], bcount._planes_as_queries(
@@ -225,19 +262,40 @@ def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
         qf = torch.from_numpy(np.where(qsrc < 0, -3, qsrc)).cuda().float()
         require(torch.equal(cdist_counts(qf, xf).to(torch.int32), got),
                 f"F - cdist(p=0) differs from K2 at P={P}, {path} shape")
-        ms = time_cuda(lambda: bcount._bcount_call(qp, xp))
-        plain_ms = time_cuda(lambda: bcount._bcount_plain(qp, xp), reps=5,
-                             warmup=1)
-        library_ms = time_cuda(lambda: cdist_counts(qf, xf), reps=5,
-                               warmup=1)
-        Qb, L = qp.shape[1], F // 32
-        # per (query, row, lane): P XNOR-ANDs, a popcount and an add
-        out.append({"path": path, "shape": f"P={P} Qb={Qb} G={G} L={L}",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms,
-                    **bound(4 * (P * Qb * L + P * G * L + Qb * G),
-                            Qb * G * L * (P + 2))})
+        out.append({"path": path, **bcount_stats(qp, xp, qf, xf, err)})
     return out
+
+
+def check_bcount_rows(tiles: int = 25) -> dict:
+    """K2 at 96 queries against 102,400 index rows (a 100k-genome index at
+    S=15, P=13), not on the smoke's main path: the 4096-row planes of
+    check_bcount repeated ``tiles`` times along rows on the card. The
+    counts must equal the plain version's and the 4096-row counts tiled
+    ``tiles`` times; F - cdist(p=0) over float copies (13.4 GB) is timed
+    beside them where the card's memory allows."""
+    import torch
+    from niqki_tpu_torch.ops import bcount
+    _, gd, q, xp, qp = bcount_inputs(13)
+    small = bcount._bcount_call(qp, xp)
+    xbig = xp.repeat(1, tiles, 1)
+    del xp
+    got = bcount._bcount_call(qp, xbig)
+    want = bcount._bcount_plain(qp, xbig)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    require(err == 0 and torch.equal(got, want),
+            f"K2 differs from its plain version at 96 x {G * tiles} rows")
+    require(torch.equal(got, small.repeat(1, tiles)),
+            f"K2 at 96 x {G * tiles} rows differs from the 4096-row counts")
+    qf = torch.from_numpy(np.where(q < 0, -3, q)).cuda().float()
+    try:
+        xf = gd.float().repeat(tiles, 1)
+        require(torch.equal(cdist_counts(qf, xf).to(torch.int32), got),
+                f"F - cdist(p=0) differs from K2 at 96 x {G * tiles} rows")
+    except torch.cuda.OutOfMemoryError:
+        qf = xf = None
+    del gd
+    return bcount_stats(qp, xbig, qf, xf, err, plain_reps=3)
 
 
 def check_pcount(Gx: int, S_: int) -> dict:
@@ -544,6 +602,9 @@ def main() -> int:
     for e in k2.values():
         log(f"phase 2: K2 bcount {e}")
     log(f"phase 2: K2 bcount {check_bcount(17)[0]}")
+    k2["rows"] = check_bcount_rows()
+    log(f"phase 2: K2 bcount (96 x 102,400 rows) {k2['rows']}")
+    torch.cuda.empty_cache()
     k3 = {key: check_pcount(Gx, S_) for key, Gx, S_ in
           (("a", G, 10), ("b", 102_400, 10), ("c", G, 11))}
     for key, e in k3.items():
@@ -604,6 +665,9 @@ def main() -> int:
         kernel_entry("bcount _bcount_call (K2, -Q shape)", *k2_src,
                      q15["bcount"], k2["-Q"],
                      launches_from="phase 5, -I/-Q -S 15"),
+        kernel_entry("bcount _bcount_call (K2, 96 x 102,400 rows)", *k2_src,
+                     0, k2["rows"],
+                     launches_from="not on the main path (phase 2 only)"),
         kernel_entry("pcount _count_call (K3, shape a, -M)", *k3_src,
                      m10["pcount"], k3["a"],
                      launches_from="phase 6, -M -S 10"),

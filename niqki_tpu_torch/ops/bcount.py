@@ -10,11 +10,12 @@ Planes are int32 tensors holding the uint32 bit patterns. Invalid value
 planes are all-0 on the stored side (-2) and all-1 on the query side (-3),
 so invalid slots match nothing, not even each other.
 
-On the card the count is the hand-written kernel of ``csrc/bcount.cu``; for
-CPU tensors the wrapper takes the plain version (XNOR/AND over the planes
-and a SWAR popcount). Packing, the query-side re-encoding, top-k and the
-uint16 wrap are plain torch, as they are XLA code in the JAX package. Only
-the int16 query wire is ported; the split wire served a TPU transport.
+On the card the count is the hand-written kernel of ``csrc/bcount.cu``,
+launched as ``_plan`` lays out; for CPU tensors the wrapper takes the
+plain version (XNOR/AND over the planes and a SWAR popcount). Packing,
+the query-side re-encoding, top-k and the uint16 wrap are plain torch, as
+they are XLA code in the JAX package. Only the int16 query wire is ported;
+the split wire served a TPU transport.
 """
 
 from __future__ import annotations
@@ -28,6 +29,14 @@ from ..hostmem import big_copy, pad_rows
 TILE_G = 128        # index rows are padded to a multiple of this
 BLOCK_Q = 96        # queries per count dispatch
 MATRIX_BLOCK = 8 * BLOCK_Q   # index rows per self-join dispatch
+
+# csrc/bcount.cu's launch geometry: a 96-query x 128-row output tile per
+# block, two blocks resident on an SM, shared memory within half an SM's.
+KERNEL_TILE_Q = 96
+KERNEL_TILE_G = 128
+BLOCKS_PER_SM = 2
+SMEM_PER_BLOCK = 114_688     # (228 KiB of the SM - 1 KiB per block) / 2
+FILL = 0.9                   # least share of the last wave's block slots
 
 
 def available(F: int, W: int) -> bool:
@@ -113,6 +122,42 @@ def _bcount_plain(qp: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan(P: int, Qb: int, G: int, L: int, sms: int = 132) -> dict:
+    """Launch plan of csrc/bcount.cu for P planes, Qb queries, G rows and
+    L lanes (L % 8 == 0) on a card of ``sms`` SMs.
+
+    ``chunk``: lanes staged per step, 4, or 2 when P > 16, so that the raw
+    and the transposed buffer (``smem`` bytes) let two blocks share an SM.
+    ``split``: the lane axis is cut into ``split`` ranges of ``lanes`` lanes
+    (a multiple of 8; the last range may be shorter), one grid row each,
+    added by atomics into a zeroed output. It is the least split whose
+    blocks fill at least FILL of the block slots of their last wave, or the
+    one that fills the most where none does. ``tiles``: the (query, row)
+    output tiles, ``blocks``: tiles x split."""
+    chunk = 4 if P <= 16 else 2
+    smem = 2 * 4 * P * (KERNEL_TILE_Q + KERNEL_TILE_G) * chunk
+    tiles = _cdiv(Qb, KERNEL_TILE_Q) * _cdiv(G, KERNEL_TILE_G)
+    slots = BLOCKS_PER_SM * sms
+
+    def fill(split):
+        blocks = tiles * split
+        return blocks / (_cdiv(blocks, slots) * slots)
+
+    split, lanes = 1, L
+    for s in range(2, L // 8 + 1):
+        if fill(split) >= FILL:
+            break
+        cut = 8 * _cdiv(L // 8, s)
+        if fill(_cdiv(L, cut)) > fill(split):
+            split, lanes = _cdiv(L, cut), cut
+    return {"chunk": chunk, "smem": smem, "split": split, "lanes": lanes,
+            "tiles": tiles, "blocks": tiles * split}
+
+
 def _bcount_call(qp: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
     """counts (Qb, G) int32 of query planes qp (P, Qb, L) against index
     planes xp (P, G, L), both int32 bit patterns on one device."""
@@ -132,14 +177,20 @@ def _bcount_call(qp: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
     if L % 8 or qp.data_ptr() % 16 or xp.data_ptr() % 16:
         raise ValueError("_bcount_call needs L % 8 == 0 and 16-byte "
                          "aligned planes")
+    if not 2 <= P <= 31:
+        raise ValueError(f"_bcount_call takes 2 <= P <= 31 planes, got {P}")
     G = xp.shape[1]
-    out = torch.empty((Qb, G), dtype=torch.int32, device=qp.device)
-    if Qb == 0 or G == 0:
-        return out
+    if Qb == 0 or G == 0 or L == 0:
+        return torch.zeros((Qb, G), dtype=torch.int32, device=qp.device)
+    plan = _plan(P, Qb, G, L, torch.cuda.get_device_properties(
+        qp.device).multi_processor_count)
+    alloc = torch.zeros if plan["split"] > 1 else torch.empty
+    out = alloc((Qb, G), dtype=torch.int32, device=qp.device)
     lib = kernels.library()
     with torch.cuda.device(qp.device):
         err = lib.niqki_bcount(qp.data_ptr(), xp.data_ptr(), out.data_ptr(),
-                               P, Qb, G, L, kernels.stream_handle(qp))
+                               P, Qb, G, L, plan["chunk"], plan["lanes"],
+                               plan["split"], kernels.stream_handle(qp))
     kernels.check(err, "bcount")
     kernels.LAUNCHES["bcount"] += 1
     return out

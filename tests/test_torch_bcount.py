@@ -172,6 +172,48 @@ def test_from_jax_counts(monkeypatch, mode):
     np.testing.assert_array_equal(tidx.counts(q), want)
 
 
+@pytest.mark.parametrize("P,Qb,G,L", [
+    (13, 768, 4096, 1024), (13, 96, 4096, 1024), (17, 96, 4096, 1024),
+    (13, 96, 102400, 1024), (13, 7, 200, 128), (31, 100, 300, 8),
+    (2, 33, 65, 16), (13, 96, 256, 1024), (13, 97, 4097, 1024),
+    (31, 96, 4096, 1024), (16, 200, 1000, 64), (13, 768, 4101, 1024),
+    (13, 96, 4101, 1024), (13, 1, 4101, 1024), (30, 5, 1, 8),
+    (31, 96, 102400, 2048)])
+def test_bcount_plan_covers_the_output(P, Qb, G, L):
+    """csrc/bcount.cu's launch plan for every shape the smoke and the card
+    tests launch: the lane ranges cover [0, L) once, in multiples of 8 and
+    whole chunks; the tiles of the grid, walked as the kernel numbers its
+    blocks (query tile fastest), cover every (q, g) once; the raw and the
+    transposed buffer fit the card's 227 KB and two blocks on an SM."""
+    plan = bcount._plan(P, Qb, G, L)
+    lanes, split, chunk = plan["lanes"], plan["split"], plan["chunk"]
+    assert chunk in (2, 4) and lanes % 8 == 0 and lanes % chunk == 0
+    ranges = [(s * lanes, min(L, (s + 1) * lanes)) for s in range(split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == L
+    assert all(a < b and (b - a) % 8 == 0 for a, b in ranges)
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+    tq, tg = bcount.KERNEL_TILE_Q, bcount.KERNEL_TILE_G
+    nq = -(-Qb // tq)
+    cover = np.zeros((nq * tq, -(-G // tg) * tg), np.int32)
+    for b in range(plan["tiles"]):
+        q0, g0 = (b % nq) * tq, (b // nq) * tg
+        cover[q0:q0 + tq, g0:g0 + tg] += 1
+    assert (cover[:Qb, :G] == 1).all() and cover.sum() == plan["tiles"] \
+        * tq * tg
+    assert plan["blocks"] == plan["tiles"] * split
+    assert plan["smem"] == 8 * P * (tq + tg) * chunk
+    assert plan["smem"] <= min(227 * 1024, bcount.SMEM_PER_BLOCK)
+    slots = bcount.BLOCKS_PER_SM * 132
+    if plan["tiles"] / (-(-plan["tiles"] // slots) * slots) >= bcount.FILL:
+        assert split == 1          # a grid that fills its waves stays whole
+
+
+def test_bcount_plan_smem_fits_every_p():
+    for P in range(2, 32):
+        assert bcount._plan(P, 96, 4096, 1024)["smem"] <= \
+            bcount.SMEM_PER_BLOCK
+
+
 def test_cuda_path_without_cuda_raises():
     """A non-CPU tensor never falls back to the plain version, and no
     launch is counted."""

@@ -69,10 +69,7 @@ def test_psort_kernel_special_rows(card, kind, m):
     _check_psort(torch.from_numpy(np.ascontiguousarray(x)).to(card), x)
 
 
-@pytest.mark.parametrize("P,Qb,G,L", [
-    (13, 96, 4096, 1024), (17, 96, 4096, 1024), (13, 7, 200, 128),
-    (31, 100, 300, 8), (2, 33, 65, 16), (13, 768, 4096, 1024)])
-def test_bcount_kernel_matches_plain(card, P, Qb, G, L):
+def _bcount_planes(card, P, Qb, G, L):
     rng = np.random.default_rng(P * 1000 + Qb)
     W = P - 1
     g = rng.integers(-3, 6, (G, L * 32)).astype(np.int32)
@@ -81,11 +78,60 @@ def test_bcount_kernel_matches_plain(card, P, Qb, G, L):
                                query=False)
     qp = bcount.pack_bitplanes(torch.from_numpy(q).to(card), W=W,
                                query=True)
+    return qp, xp
+
+
+def _check_bcount(qp, xp):
+    """One launch, equal to the plain version; returns the counts."""
     before = kernels.LAUNCHES["bcount"]
     got = bcount._bcount_call(qp, xp)
     assert kernels.LAUNCHES["bcount"] == before + 1
     assert torch.equal(got, bcount._bcount_plain(qp, xp))
     assert int(got.max()) > 0
+    return got
+
+
+@pytest.mark.parametrize("P,Qb,G,L", [
+    (13, 96, 4096, 1024), (17, 96, 4096, 1024), (13, 7, 200, 128),
+    (31, 100, 300, 8), (2, 33, 65, 16), (13, 768, 4096, 1024),
+    (13, 96, 256, 1024), (13, 97, 4097, 1024), (31, 96, 4096, 1024),
+    (16, 200, 1000, 64)])
+def test_bcount_kernel_matches_plain(card, P, Qb, G, L):
+    """Every route of bcount._plan: one tile row with the lanes split
+    (96 x 256 into 128 ranges of 8 lanes; the -Q shape into 8), ragged
+    query and row edges against the 96 x 128 tile (97 x 4097), the 2-lane
+    chunk at P = 17 and 31 (P = 31 with L = 8: one chunk pair a block),
+    the 4-lane chunk at its largest P = 16, and the -M shape unsplit."""
+    _check_bcount(*_bcount_planes(card, P, Qb, G, L))
+
+
+@pytest.mark.parametrize("lo,B", [(0, 768), (768, 768), (4000, 96)])
+def test_bcount_self_join_shapes(card, lo, B):
+    """The self-join's query planes, index rows re-encoded by
+    _planes_as_queries: a MATRIX_BLOCK of the sweep and the 96-row overflow
+    re-fetch at the index's ragged end (G = 4096 + 5 rows)."""
+    _, xp = _bcount_planes(card, 13, 1, 4101, 1024)
+    qp = bcount._planes_as_queries(xp, lo, B)
+    got = _check_bcount(qp, xp)
+    rows = torch.arange(qp.shape[1], device=card)
+    assert torch.equal(got[rows, lo + rows], got.max(dim=1).values)
+
+
+def test_bcount_split_launches_agree(card):
+    """Two launches on one input give one output: the lane-split partial
+    counts are added with integer atomics, exact in any order."""
+    qp, xp = _bcount_planes(card, 13, 96, 4096, 1024)
+    assert bcount._plan(13, 96, 4096, 1024)["split"] > 1
+    a = bcount._bcount_call(qp, xp)
+    b = bcount._bcount_call(qp, xp)
+    assert torch.equal(a, b)
+    assert torch.equal(a, bcount._bcount_plain(qp, xp))
+
+
+def test_bcount_rejects_planes_out_of_range(card):
+    qp = torch.zeros((32, 4, 16), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="2 <= P <= 31"):
+        bcount._bcount_call(qp, qp)
 
 
 def test_bcount_rejects_misaligned_lanes(card):
