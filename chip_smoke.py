@@ -18,12 +18,20 @@ Phases (any failure raises and exits non-zero):
      MATRIX_BLOCK of the self-join, P = 13) and at the -Q shape (96 packed
      queries, P = 13 and 17) and, off the main path, 96 queries against
      102,400 rows (the 4096-row planes repeated 25 times on the card; the
-     counts must also equal the 4096-row counts tiled); K3 (pcount) with
-     64 queries against (a) 4096 rows at S = 10 (the -M / -Q shape), (b)
-     102,400 rows at S = 10 (a 100k-genome index, 210 MB of int16) and (c)
-     4096 rows at S = 11.
-     K2's and K3's library time is F - torch.cdist(p=0) over float copies
-     of the same fingerprints, which must equal the kernel's counts.
+     counts must also equal the 4096-row counts tiled), and, measured
+     beside K3 though S <= 11 does not route to it, at S = 10 (32 lanes)
+     and S = 11 (64 lanes), P = 13, at the -M and -Q shapes and with all
+     4096 rows as queries in one launch; K3 (pcount) at the whole count
+     calls of the main path, (d) 4096 queries against 4096 rows at S = 10
+     (phase 6's -M call) and (e) 96 queries against them (phase 7's -Q
+     call), (f) the whole -M call at S = 11, and with 64 queries (the JAX
+     package's block) against (a) 4096 rows at S = 10, (b) 102,400 rows at
+     S = 10 (a 100k-genome index, 210 MB of int16) and (c) 4096 rows at
+     S = 11. K2's and K3's library time is F - torch.cdist(p=0) over float
+     copies of the same fingerprints, which must equal the kernel's
+     counts; their device_ms is the call's device time with the host's
+     share left out (device_ms), where ms (CUDA events around one call)
+     also holds it.
   3. the golden matrix: -M tests/fixtures/fof_tiny.txt -S 16 -K 21 through
      the self-join must equal tests/fixtures/matrix_s16_tiny.gz.
   4. the main path at full size: -M over 4096 synthetic 100 kb genomes
@@ -35,10 +43,10 @@ Phases (any failure raises and exits non-zero):
      index through the K2 top-k route; the output must equal the
      host-native hits.
   6. -M -S 10 -J 0.05 over the same 4096 genomes: the bit-plane gate fails,
-     so the dense loop counts through K3 (and launches no K2); sketches and
-     96 sampled rows must equal host-native.
+     so the dense loop counts through one K3 launch (and launches no K2);
+     sketches and 96 sampled rows must equal host-native.
   7. -I/-Q -S 10 -J 0.05 with the same queries: the dense hit route through
-     K3; the output must equal the host-native hits.
+     one K3 launch; the output must equal the host-native hits.
 
 The second line from the end is a JSON object with, for each kernel and
 main-path shape, its launches in the run that gives it that shape (phase 4
@@ -146,25 +154,90 @@ def record_keys(B: int, n_bases: int, Np: int, seed: int):
                                    value=sketch.INT32_MAX).contiguous()
 
 
-def psort_parts(keys, reps: int = 5) -> dict | None:
-    """Device ms per sort of each of K1's three kernels (four launches of
-    each), summed from a torch.profiler trace of ``reps`` sorts; None where
-    the profiler saw no device time."""
+def device_ms(fn, reps: int = 10) -> float:
+    """Median device milliseconds of the work fn() queues on the card, the
+    host's share left out: each call is queued behind a spin kernel
+    (torch.cuda._sleep) that outlasts the host's time to queue it, between
+    two CUDA events, so the card runs the call's work back to back. Every
+    call is checked: the card must still be spinning when fn() returns.
+    Where it is not, the spin is doubled and the call is made again; after
+    8 doublings the measurement fails."""
+    import torch
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+    fn()
+    torch.cuda.synchronize()
+    a, b = events()
+    a.record()
+    torch.cuda._sleep(1 << 20)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = (1 << 20) / a.elapsed_time(b)
+    t = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    spin, doublings, times = int(cycles_per_ms * (2 * host_ms + 0.5)), 0, []
+    while len(times) < reps:
+        a, b = events()
+        torch.cuda._sleep(spin)
+        a.record()
+        fn()
+        ahead = not a.query()
+        b.record()
+        b.synchronize()
+        if ahead:
+            times.append(a.elapsed_time(b))
+            continue
+        doublings += 1
+        require(doublings <= 8, "device_ms: the host never got ahead of "
+                "the card")
+        spin *= 2
+    return statistics.median(times)
+
+
+def profiled_ms(fn, names, launches: int, reps: int = 5) -> dict:
+    """Device milliseconds per call of fn() in the kernels whose names hold
+    each of ``names``, each launched ``launches`` times a call, from a
+    torch.profiler trace of ``reps`` calls; None for a name whose launches
+    the trace does not all hold (its traces on the H100 have dropped some
+    launches of a kernel; a mean over the rest is not taken as the
+    kernel's time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from niqki_tpu_torch.ops import psort
-    psort.sort_i32_pow2_batch(keys)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            psort.sort_i32_pow2_batch(keys)
+            fn()
         torch.cuda.synchronize()
-    parts = dict.fromkeys(("radix_hist", "radix_scan", "radix_scatter"), 0.0)
+    total = dict.fromkeys(names, 0.0)
+    seen = dict.fromkeys(names, 0)
     for e in prof.key_averages():
-        for name in parts:
+        for name in names:
             if name in e.key:
-                parts[name] += e.device_time_total / reps / 1e3
-    return parts if any(parts.values()) else None
+                total[name] += e.device_time_total
+                seen[name] += e.count
+    out = {}
+    for name in names:
+        if seen[name] == reps * launches:
+            out[name] = total[name] / reps / 1e3
+        else:
+            out[name] = None
+            log(f"  profiler: {seen[name]} of {reps * launches} launches of "
+                f"{name} in the trace; not measured")
+    return out
+
+
+def psort_parts(keys) -> dict:
+    """Device ms per sort of each of K1's three kernels (four launches of
+    each)."""
+    from niqki_tpu_torch.ops import psort
+    return profiled_ms(lambda: psort.sort_i32_pow2_batch(keys),
+                       ("radix_hist", "radix_scan", "radix_scatter"),
+                       launches=4)
 
 
 def check_psort(B: int, n_bases: int, Np: int) -> dict:
@@ -190,15 +263,15 @@ def check_psort(B: int, n_bases: int, Np: int) -> dict:
             **bound(2 * B * Np * 4, 16 * B * Np)}
 
 
-def bcount_inputs(P: int):
-    """4096 index rows of F = 32768 fingerprints (W = P - 1) with one
-    cluster of 64 equal rows and 1% stored -2 slots, and 96 queries drawn
-    from them with 5% query -3 slots, 8 of them copies of row 0: (index
-    fingerprints, the same on the card, query fingerprints, index planes,
-    query planes)."""
+def bcount_inputs(P: int, F: int = 32768):
+    """4096 index rows of F fingerprints (W = P - 1; F = 32768 is S = 15)
+    with one cluster of 64 equal rows and 1% stored -2 slots, and 96
+    queries drawn from them with 5% query -3 slots, 8 of them copies of row
+    0: (index fingerprints, the same on the card, query fingerprints, index
+    planes, query planes)."""
     import torch
     from niqki_tpu_torch.ops import bcount
-    W, F, Qb = P - 1, 32768, bcount.BLOCK_Q
+    W, Qb = P - 1, bcount.BLOCK_Q
     rng = np.random.default_rng(P)
     g = rng.integers(0, 1 << W, (G, F), dtype=np.int32)
     g[:64] = g[0]                                   # one cluster of 64
@@ -219,6 +292,7 @@ def bcount_stats(qp, xp, qf, xf, err: int, plain_reps: int = 5) -> dict:
     import torch
     from niqki_tpu_torch.ops import bcount
     ms = time_cuda(lambda: bcount._bcount_call(qp, xp))
+    dev_ms = device_ms(lambda: bcount._bcount_call(qp, xp))
     plain_ms = time_cuda(lambda: bcount._bcount_plain(qp, xp),
                          reps=plain_reps, warmup=1)
     library_ms = None if qf is None else time_cuda(
@@ -227,26 +301,28 @@ def bcount_stats(qp, xp, qf, xf, err: int, plain_reps: int = 5) -> dict:
     Gx = xp.shape[1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return {"shape": f"P={P} Qb={Qb} G={Gx} L={L}", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "plan": bcount._plan(P, Qb, Gx, L, sms),
             **bound(4 * (P * Qb * L + P * Gx * L + Qb * Gx),
                     Qb * Gx * L * (P + 2))}
 
 
-def check_bcount(P: int, matrix_shape: bool = False) -> list[dict]:
-    """K2 against its plain version over 4096 index rows of 1024 lanes
-    (S=15): at the -Q shape (96 queries packed from fingerprints, as
-    match_counts_planes ships them) and, with ``matrix_shape``, at the -M
-    shape (MATRIX_BLOCK index rows re-encoded as queries, as the self-join
-    sweep launches it)."""
+def check_bcount(P: int, matrix_rows: tuple = (),
+                 F: int = 32768) -> list[dict]:
+    """K2 against its plain version over 4096 index rows of F / 32 lanes
+    (1024 at S=15): at the -Q shape (96 queries packed from fingerprints,
+    as match_counts_planes ships them) and, for each B of ``matrix_rows``,
+    with the first B index rows re-encoded as queries: the -M shape at
+    B = MATRIX_BLOCK, as the self-join sweep launches it, and the whole -M
+    count in one launch at B = 4096."""
     import torch
     from niqki_tpu_torch.ops import bcount
-    g, gd, q, xp, qp = bcount_inputs(P)
-    F = g.shape[1]
+    g, gd, q, xp, qp = bcount_inputs(P, F)
     shapes = [("-Q", q, qp)]
-    if matrix_shape:
-        B = bcount.MATRIX_BLOCK
-        shapes.append(("-M", g[:B], bcount._planes_as_queries(
+    for B in matrix_rows:
+        path = "-M" if B == bcount.MATRIX_BLOCK else f"-M {B} rows"
+        shapes.append((path, g[:B], bcount._planes_as_queries(
             xp, 0, B).contiguous()))
     xf = gd.float()
     out = []
@@ -298,15 +374,16 @@ def check_bcount_rows(tiles: int = 25) -> dict:
     return bcount_stats(qp, xbig, qf, xf, err, plain_reps=3)
 
 
-def check_pcount(Gx: int, S_: int) -> dict:
-    """K3 against its plain version: PC_BLOCK_Q queries against Gx index
-    rows of F = 2^S_ int16 fingerprints (W = 12), pair-packed as
-    SketchIndex._packed ships them. Clusters of 64 rows, 1% stored -2
-    slots, 5% query -3 slots; 8 queries are exact copies of row 0."""
+def pcount_inputs(Gx: int, S_: int, Qb: int):
+    """Qb queries against Gx index rows of F = 2^S_ int16 fingerprints
+    (W = 12), pair-packed as SketchIndex._packed ships them. Clusters of 64
+    rows, 1% stored -2 slots, 5% query -3 slots; 8 queries are exact copies
+    of row 0. Returns (queries, the index padded to TILE_G rows, both on the
+    card, and both pair-packed: qd, gd, qp, xp)."""
     import torch
     from niqki_tpu_torch.hostmem import pad_rows
     from niqki_tpu_torch.ops import pcount
-    F, Qb = 1 << S_, pcount.PC_BLOCK_Q
+    F = 1 << S_
     rng = np.random.default_rng(Gx + S_)
     g = rng.integers(0, 1 << 12, (Gx, F), dtype=np.int16)
     share = rng.integers(0, 2, (Gx, F), dtype=np.int8) == 1
@@ -317,28 +394,43 @@ def check_pcount(Gx: int, S_: int) -> dict:
     q[:8] = g[0]
     gd = torch.from_numpy(pad_rows(g, pcount.TILE_G)).cuda()
     qd = torch.from_numpy(q).cuda()
-    xp, qp = pcount.pack_rows(gd), pcount.pack_rows(qd)
+    return qd, gd, pcount.pack_rows(qd), pcount.pack_rows(gd)
+
+
+def check_pcount(Gx: int, S_: int, Qb: int = 64) -> dict:
+    """K3 against its plain version: Qb queries against Gx index rows of
+    F = 2^S_ (pcount_inputs), the whole count in one _count_call."""
+    import torch
+    from niqki_tpu_torch.ops import pcount
+    F = 1 << S_
+    qd, gd, qp, xp = pcount_inputs(Gx, S_, Qb)
     got = pcount._count_call(qp, xp)
     want = pcount._count_plain(qp, xp)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
     require(err == 0 and torch.equal(got, want),
-            f"K3 differs from its plain version at G={Gx}, F={F}")
+            f"K3 differs from its plain version at {Qb} x {Gx}, F={F}")
     require(int(got.max()) == F and int((got > F // 4).sum()) > 8 * 64,
             "K3 check saw no clusters")
     qf, xf = qd.float(), gd.float()
     require(torch.equal(cdist_counts(qf, xf).to(torch.int32), got),
-            f"F - cdist(p=0) differs from K3 at G={Gx}, F={F}")
+            f"F - cdist(p=0) differs from K3 at {Qb} x {Gx}, F={F}")
     ms = time_cuda(lambda: pcount._count_call(qp, xp))
+    dev_ms = device_ms(lambda: pcount._count_call(qp, xp))
     plain_ms = time_cuda(lambda: pcount._count_plain(qp, xp), reps=5,
                          warmup=1)
     library_ms = time_cuda(lambda: cdist_counts(qf, xf), reps=5, warmup=1)
     del qf, xf
     Gp, Fp = xp.shape
-    # per (query, row, pair lane): an xor, a test of each half, an add
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # per (query, row, pair lane), the fewest int32 instructions the card
+    # needs (SASS, tools/torch_pcount_ab.py --sass): an xor, one SIMD
+    # min.u16x2 that tests both halves, half a three-input add
     return {"shape": f"Qb={Qb} G={Gx} F={F}", "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            **bound(4 * (Qb * Fp + Gp * Fp + Qb * Gp), 4 * Qb * Gp * Fp)}
+            "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "plan": pcount._plan(Qb, Gp, Fp, sms),
+            **bound(4 * (Qb * Fp + Gp * Fp + Qb * Gp), 2.5 * Qb * Gp * Fp)}
 
 
 # ---------------------------------------------------------------------------
@@ -598,15 +690,20 @@ def main() -> int:
            (6, 4_600_000, 1 << 23))}
     for e in k1.values():
         log(f"phase 2: K1 psort {e}")
-    k2 = {e["path"]: e for e in check_bcount(13, matrix_shape=True)}
+    k2 = {e["path"]: e for e in check_bcount(13, matrix_rows=(768,))}
     for e in k2.values():
         log(f"phase 2: K2 bcount {e}")
     log(f"phase 2: K2 bcount {check_bcount(17)[0]}")
     k2["rows"] = check_bcount_rows()
     log(f"phase 2: K2 bcount (96 x 102,400 rows) {k2['rows']}")
+    for S_ in (10, 11):     # beside K3, which serves S <= 11: measured only
+        for e in check_bcount(13, matrix_rows=(768, G), F=1 << S_):
+            k2[f"{e['path']} S={S_}"] = e
+            log(f"phase 2: K2 bcount (S={S_}) {e}")
     torch.cuda.empty_cache()
-    k3 = {key: check_pcount(Gx, S_) for key, Gx, S_ in
-          (("a", G, 10), ("b", 102_400, 10), ("c", G, 11))}
+    k3 = {key: check_pcount(Gx, S_, Qb) for key, Gx, S_, Qb in
+          (("a", G, 10, 64), ("b", 102_400, 10, 64), ("c", G, 11, 64),
+           ("d", G, 10, G), ("e", G, 10, NQ), ("f", G, 11, G))}
     for key, e in k3.items():
         log(f"phase 2: K3 pcount ({key}) {e}")
 
@@ -634,16 +731,16 @@ def main() -> int:
             require(q15["bcount"] > 0 and spy.sparse_hits > 0,
                     "-Q -S 15 did not take the K2 top-k route")
             hidx, m10, idx = phase_matrix(d, fof, spy, 10, 6)
-            require(m10["pcount"] > 0 and m10["bcount"] == 0
+            require(m10["pcount"] == 1 and m10["bcount"] == 0
                     and m10["psort"] > 0,
-                    f"-M -S 10 did not count through K3 alone: {m10}")
+                    f"-M -S 10 did not count through one K3 launch: {m10}")
             require(idx._device_packed is not None and tuple(
                 idx._device_packed.shape) == (G, 512),
                 "pair-packed index missing or misshapen")
             q10 = phase_query(d, fof, qfof, hidx, spy, 7)
-            require(q10["pcount"] > 0 and q10["bcount"] == 0
+            require(q10["pcount"] == 1 and q10["bcount"] == 0
                     and spy.sparse_hits == 0,
-                    f"-Q -S 10 did not count through K3: {q10}")
+                    f"-Q -S 10 did not count through one K3 launch: {q10}")
         finally:
             spy.close()
 
@@ -651,6 +748,8 @@ def main() -> int:
     k2_src = ("niqki_tpu_torch/csrc/bcount.cu", "niqki_tpu/ops/bcount.py:103")
     k3_src = ("niqki_tpu_torch/csrc/pcount.cu", "niqki_tpu/ops/pcount.py:52")
     ecoli = "not on the smoke's main path (E. coli-sized records)"
+    off_path = ("not on the main path (phase 2 only): the port counts a "
+                "whole call in one launch")
     print(json.dumps({"kernels": [
         kernel_entry("psort sort_i32_pow2_batch (K1, 256 x 2^17)", *k1_src,
                      m15["psort"], k1[256],
@@ -668,16 +767,28 @@ def main() -> int:
         kernel_entry("bcount _bcount_call (K2, 96 x 102,400 rows)", *k2_src,
                      0, k2["rows"],
                      launches_from="not on the main path (phase 2 only)"),
-        kernel_entry("pcount _count_call (K3, shape a, -M)", *k3_src,
-                     m10["pcount"], k3["a"],
-                     launches_from="phase 6, -M -S 10"),
-        kernel_entry("pcount _count_call (K3, shape a, -Q)", *k3_src,
-                     q10["pcount"], k3["a"],
-                     launches_from="phase 7, -I/-Q -S 10"),
+        *[kernel_entry(f"bcount _bcount_call (K2, {path} shape at S={S_}, "
+                       f"{k2[f'{path} S={S_}']['shape']})", *k2_src, 0,
+                       k2[f"{path} S={S_}"],
+                       launches_from="not on the main path (phase 2 only):"
+                       " S <= 11 counts through K3")
+          for S_ in (10, 11) for path in ("-M", f"-M {G} rows", "-Q")],
+        kernel_entry("pcount _count_call (K3, shape a)", *k3_src, 0, k3["a"],
+                     launches_from=off_path),
         kernel_entry("pcount _count_call (K3, shape b)", *k3_src, 0, k3["b"],
-                     launches_from="not on the main path (phase 2 only)"),
+                     launches_from=off_path),
         kernel_entry("pcount _count_call (K3, shape c)", *k3_src, 0, k3["c"],
-                     launches_from="not on the main path (phase 2 only)"),
+                     launches_from=off_path),
+        kernel_entry("pcount _count_call (K3, shape d, the -M call)",
+                     *k3_src, m10["pcount"], k3["d"],
+                     launches_from="phase 6, -M -S 10"),
+        kernel_entry("pcount _count_call (K3, shape e, the -Q call)",
+                     *k3_src, q10["pcount"], k3["e"],
+                     launches_from="phase 7, -I/-Q -S 10"),
+        kernel_entry("pcount _count_call (K3, shape f, the -M call at S=11)",
+                     *k3_src, 0, k3["f"],
+                     launches_from="not on the main path (phase 2 only): "
+                     "the smoke's main path runs S=10"),
     ], "build_s": build_s, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -121,7 +121,8 @@ def library():
             lib.niqki_bcount.argtypes = [vp, vp, vp, i32, i32, i64, i64,
                                          i32, i64, i32, vp]
             lib.niqki_pcount.restype = i32
-            lib.niqki_pcount.argtypes = [vp, vp, vp, i32, i64, i64, vp]
+            lib.niqki_pcount.argtypes = [vp, vp, vp, i32, i64, i64, i32,
+                                         i64, i32, vp]
             lib.niqki_cuda_error_string.restype = ctypes.c_char_p
             lib.niqki_cuda_error_string.argtypes = [i32]
             _lib = lib

@@ -140,13 +140,10 @@ def test_bcount_rejects_misaligned_lanes(card):
         bcount._bcount_call(qp, qp)
 
 
-@pytest.mark.parametrize("Qb,G,F", [
-    (64, 4096, 1024), (64, 102400, 1024), (64, 4096, 2048), (7, 200, 256),
-    (100, 300, 512), (1, 65, 64), (130, 4096, 1024)])
-def test_pcount_kernel_matches_plain(card, Qb, G, F):
-    """K3 at the main path's shapes (64 queries against G = 4096 and
-    102,400 at S = 10, and S = 11) and ragged edges; clustered rows so
-    counts reach F, stored -2 and query -3 sentinels, negative halves."""
+def _pcount_rows(Qb, G, F):
+    """Random int16 fingerprints with clustered rows so counts reach F,
+    stored -2 and query -3 sentinels and negative halves; query 0 equals
+    row 0 and query Qb-1 shares half of row 1."""
     rng = np.random.default_rng(Qb * 7 + G + F)
     g = rng.integers(-2, 1 << 14, (G, F)).astype(np.int16)
     g[: min(G, 50)] = g[0]
@@ -154,6 +151,21 @@ def test_pcount_kernel_matches_plain(card, Qb, G, F):
     q[0] = g[0]
     q[-1, : F // 2] = g[1, : F // 2]
     q[q == -2] = -3
+    return q, g
+
+
+@pytest.mark.parametrize("Qb,G,F", [
+    (64, 4096, 1024), (64, 102400, 1024), (64, 4096, 2048), (7, 200, 256),
+    (100, 300, 512), (1, 65, 64), (130, 4096, 1024), (4096, 4096, 1024),
+    (96, 4096, 1024), (129, 4097, 1024), (4, 300, 1 << 17)])
+def test_pcount_kernel_matches_plain(card, Qb, G, F):
+    """K3 at the main path's shapes (the whole -M call, 4096 x 4096 at
+    S = 10, split into none; the -Q call, 96 x 4096, split 8 ways; 64
+    queries against G = 4096 and 102,400 at S = 10, and S = 11), ragged
+    edges against the 128 x 128 tile (129 x 4097, 130 x 4096, 7 x 200,
+    1 x 65) and F = 2^17, whose 65,536 lanes the plan cuts into ranges
+    within the 16-bit counters, with a query equal to a row."""
+    q, g = _pcount_rows(Qb, G, F)
     xp = pcount.pack_rows(torch.from_numpy(g).to(card))
     qp = pcount.pack_rows(torch.from_numpy(q).to(card))
     before = kernels.LAUNCHES["pcount"]
@@ -161,6 +173,38 @@ def test_pcount_kernel_matches_plain(card, Qb, G, F):
     assert kernels.LAUNCHES["pcount"] == before + 1
     assert torch.equal(got, pcount._count_plain(qp, xp))
     assert int(got[0, 0]) == F and int(got.max()) == F
+
+
+def test_pcount_split_launches_agree(card):
+    """Two launches on one input give one output: the lane-split partial
+    counts are added with integer atomics, exact in any order."""
+    q, g = _pcount_rows(96, 4096, 1024)
+    xp = pcount.pack_rows(torch.from_numpy(g).to(card))
+    qp = pcount.pack_rows(torch.from_numpy(q).to(card))
+    assert pcount._plan(96, 4096, 512)["split"] > 1
+    a = pcount._count_call(qp, xp)
+    b = pcount._count_call(qp, xp)
+    assert torch.equal(a, b)
+    assert torch.equal(a, pcount._count_plain(qp, xp))
+
+
+def test_match_counts_packed_launches(card, monkeypatch):
+    """A whole count call is one launch at G = 4096 with 4096 queries, and
+    as many launches as _launch_ranges gives once the output budget is
+    crossed; the counts are the same either way."""
+    G = 4096
+    q, g = _pcount_rows(G, G, 1024)
+    gp = pcount.pack_rows(torch.from_numpy(g).to(card))
+    want = pcount._count_plain(pcount.pack_rows(
+        torch.from_numpy(q).to(card)), gp).cpu().numpy()
+    kernels.reset_launches()
+    np.testing.assert_array_equal(pcount.match_counts_packed(q, gp, G), want)
+    assert kernels.LAUNCHES["pcount"] == 1
+    monkeypatch.setattr(pcount, "OUT_BUDGET", 1000 * G)
+    n = len(pcount._launch_ranges(G, G, pcount.OUT_BUDGET))
+    assert n == 5
+    np.testing.assert_array_equal(pcount.match_counts_packed(q, gp, G), want)
+    assert kernels.LAUNCHES["pcount"] == 1 + n
 
 
 def test_pcount_rejects_misaligned_lanes(card):

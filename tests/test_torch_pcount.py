@@ -110,6 +110,71 @@ def test_available_matches_jax_formula(lF):
         (jp.TILE_G, jp.CHUNK_LANES, jp.PC_BLOCK_Q)
 
 
+_SHAPES = [   # (Qb, G, Fp): the smoke's and the card tests' K3 launches
+    (64, 4096, 512), (64, 102400, 512), (64, 4096, 1024), (4096, 4096, 512),
+    (96, 4096, 512), (288, 4096, 512), (7, 200, 128), (100, 300, 256),
+    (1, 65, 32), (130, 4096, 512), (129, 4097, 512), (4, 300, 65536),
+    (896, 4096, 512), (640, 102400, 512), (4096, 4096, 65536)]
+
+
+@pytest.mark.parametrize("Qb,G,Fp", _SHAPES)
+def test_pcount_plan_covers_the_output(Qb, G, Fp):
+    """csrc/pcount.cu's launch plan for every shape the smoke and the card
+    tests launch, and F = 2^17: the lane ranges cover [0, Fp) once, in
+    whole 32-lane chunks, each within the 16-bit counters' LANE_CAP; the
+    tiles of the grid, walked as the kernel numbers its blocks (query tile
+    fastest), cover every (q, g) once; the two stage buffers let two
+    blocks share an SM."""
+    plan = pcount._plan(Qb, G, Fp)
+    lanes, split = plan["lanes"], plan["split"]
+    assert lanes % pcount.KERNEL_LANES == 0 and lanes <= pcount.LANE_CAP
+    ranges = [(s * lanes, min(Fp, (s + 1) * lanes)) for s in range(split)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == Fp
+    assert all(a < b and (b - a) % pcount.KERNEL_LANES == 0
+               for a, b in ranges)
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))
+    tq, tg = plan["tile_q"], pcount.KERNEL_TILE_G
+    assert tq in pcount.KERNEL_TILES_Q
+    assert all(-(-Qb // t) * t >= -(-Qb // tq) * tq
+               for t in pcount.KERNEL_TILES_Q)       # the least padding
+    nq = -(-Qb // tq)
+    cover = np.zeros((nq * tq, -(-G // tg) * tg), np.uint8)
+    for b in range(plan["tiles"]):
+        q0, g0 = (b % nq) * tq, (b // nq) * tg
+        cover[q0:q0 + tq, g0:g0 + tg] += 1
+    assert (cover[:Qb, :G] == 1).all() and (cover <= 1).all()
+    assert plan["blocks"] == plan["tiles"] * split
+    # two buffers of (tile_q queries + 128 rows) x 36 words; an SM holds
+    # 228 KiB, of which the runtime keeps 1 KiB per block
+    assert plan["smem"] == 2 * (tq + tg) * 36 * 4
+    assert pcount.BLOCKS_PER_SM * (plan["smem"] + 1024) <= 228 * 1024
+    slots = pcount.BLOCKS_PER_SM * 132
+    if Fp <= pcount.LANE_CAP and plan["tiles"] / (
+            -(-plan["tiles"] // slots) * slots) >= pcount.FILL:
+        assert split == 1          # a grid that fills its waves stays whole
+
+
+@pytest.mark.parametrize("Q,G,budget", [
+    (4096, 4096, pcount.OUT_BUDGET), (96, 4096, pcount.OUT_BUDGET),
+    (10000, 102400, pcount.OUT_BUDGET), (4096, 4096, 1000 * 4096),
+    (5, 200, 2 * 200), (70, 129, 8 * 129 + 5),
+    (3, 1 << 27, pcount.OUT_BUDGET), (0, 4096, pcount.OUT_BUDGET)])
+def test_launch_ranges_cover_the_queries(Q, G, budget):
+    """match_counts_packed's launches cover the queries once, in order; each
+    output stays within the budget (a launch holds at least one query) and
+    every launch but the last fills it; below the budget a call is one
+    launch."""
+    ranges = pcount._launch_ranges(Q, G, budget)
+    bounds = [0] + [hi for _, hi in ranges]
+    assert [lo for lo, _ in ranges] == bounds[:-1] and bounds[-1] == Q
+    step = max(1, budget // G)
+    for lo, hi in ranges:
+        assert hi > lo and ((hi - lo) * G <= budget or hi - lo == 1)
+    assert all(hi - lo == step for lo, hi in ranges[:-1])
+    if Q * G <= budget and Q:
+        assert ranges == [(0, Q)]
+
+
 def _clustered_jax_index(p, G=4096, seed=3):
     """A JAX index of G synthetic sketches: clusters of 64 rows sharing 60%
     of their slots with an ancestor, empty slots in every 9th row."""
