@@ -47,11 +47,26 @@ Phases (any failure raises and exits non-zero):
      sketches and 96 sampled rows must equal host-native.
   7. -I/-Q -S 10 -J 0.05 with the same queries: the dense hit route through
      one K3 launch; the output must equal the host-native hits.
+  8. lines mode at S=15, -J 0.05: -i of phase 4's 4096 genomes written as
+     one multi-FASTA (every record over HOST_SKETCH_MAX, so every record
+     sketches through K1 at 2^17), whose matrix must equal phase 4's row for
+     row and whose names must be the headers; then -l of 8192 records cut
+     from phase 5's mutants (the 96 mutants of 100 kb, K1 at 2^17; 1000
+     contigs of 40-65 kb, K1 at 2^16; 7096 contigs of 2-30 kb on the host
+     sketcher) through the K2 top-k route, whose output must equal the
+     host-native hits (the host sketcher, native.count_eq counts,
+     native.HitsFormatter). K1 and K2 must have launched.
+  9. dumps: SketchIndex.dump of phase 8's index, then -L of it with -l of
+     the same records: the loaded matrix and names must equal phase 8's
+     index and the output phase 8's bytes, through K2.
 
-The second line from the end is a JSON object with, for each kernel and
-main-path shape, its launches in the run that gives it that shape (phase 4
-and 5 at S=15, 6 and 7 at S=10), its error, times, bound and library time;
-the last line names the device. Without a CUDA device, or without the
+Phase 2 also checks and times K1 at 512 x 2^16, the lines-mode shape of
+phase 8's 40-65 kb contigs. The second line from the end is a JSON object
+with, for each kernel and main-path shape, its launches in the run that
+gives it that shape (phase 4 and 5 at S=15, 6 and 7 at S=10, 8 for K1 at
+2^16) and in phases 8 and 9 (launches_phase8, launches_phase9; K1 by row
+length), its error, times, bound and library time; the last line names the
+device. Without a CUDA device, or without the
 port's package beside it, the script fails before printing either. It
 imports nothing of JAX and no module of the JAX package: the host-native
 reference comes through the port (``niqki_tpu_torch.native``,
@@ -74,6 +89,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXDIR = os.path.join(REPO, "tests", "fixtures")
 G, LEN, CLUSTERS, MUT, QMUT, NQ = 4096, 100_000, 128, 0.02, 0.01, 96
+N_MID, N_SHORT = 1000, 8192 - 1000 - 96     # phase 8's -l contigs
 S = 15          # sketch size 2^S; K=31, W=12, H=4 are the CLI defaults
 SEED = 7
 T0 = time.time()
@@ -465,7 +481,7 @@ def write_queries(d: str, seqs) -> str:
     alphabet = np.frombuffer(b"ACGT", np.uint8)
     qd = os.path.join(d, "queries")
     os.makedirs(qd)
-    paths = []
+    paths, mutants = [], []
     for j, gi in enumerate(sorted(rng.choice(len(seqs), NQ, replace=False))):
         base = seqs[gi]
         m = rng.random(LEN) < QMUT
@@ -474,27 +490,62 @@ def write_queries(d: str, seqs) -> str:
         with open(path, "wb") as f:
             f.write(b">q%d\n%s\n" % (j, s.tobytes()))
         paths.append(path)
+        mutants.append((f"q{j}_of_{gi}", s))
     qfof = os.path.join(d, "qfof.txt")
     with open(qfof, "w") as f:
         f.write("".join(p + "\n" for p in paths))
-    return qfof
+    return qfof, mutants
+
+
+def write_lines_inputs(d: str, fof: str, seqs, mutants) -> tuple[str, str]:
+    """Phase 8's inputs: the G genomes as one multi-FASTA (the records of
+    phase 4's files, in fof order), and a query file of the NQ mutants,
+    N_MID contigs of 40-65 kb and N_SHORT contigs of 2-30 kb cut from the
+    mutants at random, in a random order."""
+    with open(fof) as f:
+        names = [ln.rstrip("\n") for ln in f]
+    allfa = os.path.join(d, "all.fa")
+    with open(allfa, "wb") as f:
+        for name, s in zip(names, seqs):
+            f.write(b">%s\n%s\n" % (name.encode(), s.tobytes()))
+    rng = np.random.default_rng(SEED + 3)
+    recs = [(name, s) for name, s in mutants]
+    for k, (lo, hi) in enumerate([(40_000, 65_000)] * N_MID
+                                 + [(2_000, 30_000)] * N_SHORT):
+        j = int(rng.integers(len(mutants)))
+        n = int(rng.integers(lo, hi + 1))
+        st = int(rng.integers(0, LEN - n + 1))
+        recs.append((f"contig{k}_{mutants[j][0]}_{st}_{n}",
+                     mutants[j][1][st:st + n]))
+    qfa = os.path.join(d, "lines_q.fa")
+    with open(qfa, "wb") as f:
+        for i in rng.permutation(len(recs)):
+            name, s = recs[i]
+            f.write(b">%s\n%s\n" % (name.encode(), s.tobytes()))
+    return allfa, qfa
 
 
 class Spy:
     """Times and records calls of the port's index methods and engine
-    functions during a CLI run (the CLI builds its index internally)."""
+    functions during a CLI run (the CLI builds its index internally), and
+    the row length of every K1 call (``k1_rows``: N -> calls)."""
 
     def __init__(self):
         import torch
         from niqki_tpu_torch import engine, index
+        from niqki_tpu_torch.ops import sketch
         self.times: dict[str, float] = {}
         self.index = None
         self.sparse_hits = 0
+        self.k1_rows: dict[int, int] = {}
         cls = index.SketchIndex
-        self._orig = [(cls, n, getattr(cls, n)) for n in (
-            "sketch_files", "_planes", "_packed", "pretty_hits_batch")]
-        self._orig += [(engine, n, getattr(engine, n)) for n in (
-            "query_matrix", "_query_matrix_selfjoin")]
+        self._orig = [(cls, n, vars(cls)[n]) for n in (
+            "sketch_files", "insert_file_lines", "load", "_planes",
+            "_packed", "pretty_hits_batch")]
+        self._orig += [(engine, n, vars(engine)[n]) for n in (
+            "query_matrix", "_query_matrix_selfjoin", "query_file_lines")]
+        self._orig.append((sketch, "sort_i32_pow2_batch",
+                           sketch.sort_i32_pow2_batch))
         orig = {n: f for _, n, f in self._orig}
         spy = self
 
@@ -511,6 +562,16 @@ class Spy:
             spy.index = self_
             return timed("ingest_s", orig["sketch_files"])(
                 self_, paths, *a, **k)
+
+        def insert_file_lines(self_, path, *a, **k):
+            spy.index = self_
+            return timed("ingest_s", orig["insert_file_lines"])(
+                self_, path, *a, **k)
+
+        def load(cls_, path, *a, **k):
+            spy.index = timed("load_s", orig["load"].__func__)(
+                cls_, path, *a, **k)
+            return spy.index
 
         def device_copy(name, attr):
             def get(self_):
@@ -529,13 +590,28 @@ class Spy:
             spy.sparse_hits += buf is not None
             return buf
 
+        def sort(x):
+            n = int(x.shape[1])
+            spy.k1_rows[n] = spy.k1_rows.get(n, 0) + 1
+            return orig["sort_i32_pow2_batch"](x)
+
         cls.sketch_files = sketch_files
+        cls.insert_file_lines = insert_file_lines
+        cls.load = classmethod(load)
         cls._planes = device_copy("_planes", "_device_planes")
         cls._packed = device_copy("_packed", "_device_packed")
         cls.pretty_hits_batch = pretty
         engine.query_matrix = timed("matrix_s", orig["query_matrix"])
         engine._query_matrix_selfjoin = timed(
             "sweep_s", orig["_query_matrix_selfjoin"])
+        engine.query_file_lines = timed("lines_s", orig["query_file_lines"])
+        sketch.sort_i32_pow2_batch = sort
+
+    def reset(self):
+        self.times.clear()
+        self.index = None
+        self.sparse_hits = 0
+        self.k1_rows.clear()
 
     def close(self):
         for owner, name, fn in self._orig:
@@ -653,9 +729,105 @@ def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy",
     return launches
 
 
-def kernel_entry(name, source, replaces, launches, stats, **extra):
+def host_lines_hits(qfa: str, hidx, names) -> bytes:
+    """The host-native reference of -l against an index holding hidx's
+    matrix under ``names``: every record sketched on the host (the port's
+    SketchIndex on the CPU under NIQKI_TPU_SKETCH=host), counted by
+    native.count_eq and formatted by native.HitsFormatter."""
+    from niqki_tpu_torch import SketchIndex, native
+    p = hidx.params
+    fmt = native.HitsFormatter(names, p.F, p.min_score)
+    stored = hidx._stored()
+    parts = []
+    os.environ["NIQKI_TPU_SKETCH"] = "host"
+    try:
+        hq = SketchIndex(p, device="cpu")
+        for part, q in hq.query_sketch_stream(
+                hq._iter_packed_with_headers(qfa)):
+            counts = native.count_eq(q, stored, p.fingerprint_range)
+            parts.append(fmt.format(counts, [r[0] for r in part]))
+    finally:
+        del os.environ["NIQKI_TPU_SKETCH"]
+    return b"".join(parts)
+
+
+def phase_lines(d: str, allfa: str, qfa: str, hidx, spy: "Spy"):
+    """Phase 8: -i of the G genomes as one multi-FASTA, then -l of the
+    query records; returns (launches, K1 calls by row length, the -i
+    index, the -l output bytes)."""
+    from niqki_tpu_torch import cli, kernels
+    out = os.path.join(d, "lines.gz")
+    spy.reset()
+    kernels.reset_launches()
+    t = time.time()
+    rc = cli.main(["-i", allfa, "-l", qfa, "-J", "0.05", "-O", out])
+    launches = dict(kernels.LAUNCHES)
+    wall = time.time() - t
+    require(rc == 0, "-i/-l rc")
+    idx, rows, sparse = spy.index, dict(spy.k1_rows), spy.sparse_hits
+    tm = {k: round(v, 3) for k, v in spy.times.items()}
+    require(sum(rows.values()) == launches["psort"],
+            f"K1 calls by row length {rows} != launches {launches}")
+    names = [">" + n for n in hidx.names]
+    require(idx is not None and idx.names == names,
+            "-i names are not the records' headers")
+    require(np.array_equal(idx.matrix(), hidx.matrix()),
+            "-i matrix differs from phase 4's matrix")
+    got = gz_bytes(out)
+    log(f"phase 8: -i/-l -S {S} wall {wall:.2f} s; {tm} (ingest_s: -i, "
+        f"lines_s: -l); launches {launches}; K1 calls by row length {rows}; "
+        f"{sparse} sparse top-k batches; {got.count(b':')} hits")
+    t = time.time()
+    want = host_lines_hits(qfa, hidx, names)
+    log(f"phase 8: host-native -l reference in {time.time() - t:.1f} s")
+    require(got == want, "-l hits differ from host-native hits")
+    require(launches["psort"] > 0 and launches["bcount"] > 0 and sparse > 0,
+            f"-i/-l skipped K1 or the K2 top-k route: {launches}")
+    log(f"phase 8: -i matrix == phase 4's, names == headers, -l output == "
+        f"host-native ({len(got)} bytes)")
+    return launches, rows, idx, got
+
+
+def phase_dump(d: str, idx, qfa: str, want: bytes, spy: "Spy"):
+    """Phase 9: dump phase 8's index, then -L it with -l of the same
+    records; returns (launches, K1 calls by row length)."""
+    from niqki_tpu_torch import cli, kernels
+    dump = os.path.join(d, "index.bin")
+    t = time.time()
+    idx.dump(dump)
+    dump_s = time.time() - t
+    size = os.path.getsize(dump)
+    out = os.path.join(d, "lines_loaded.gz")
+    spy.reset()
+    kernels.reset_launches()
+    t = time.time()
+    rc = cli.main(["-L", dump, "-l", qfa, "-O", out])
+    launches = dict(kernels.LAUNCHES)
+    wall = time.time() - t
+    require(rc == 0, "-L/-l rc")
+    loaded, rows = spy.index, dict(spy.k1_rows)
+    tm = {k: round(v, 3) for k, v in spy.times.items()}
+    require(loaded is not None and loaded.names == idx.names,
+            "loaded names differ")
+    require(np.array_equal(loaded.matrix(), idx.matrix()),
+            "loaded matrix differs from the dumped index")
+    require(gz_bytes(out) == want, "-L -l output differs from phase 8's")
+    require(launches["bcount"] > 0, f"-L -l skipped K2: {launches}")
+    log(f"phase 9: dump_s {dump_s:.2f}, dump {size} bytes; -L/-l wall "
+        f"{wall:.2f} s; {tm} (load_s: SketchIndex.load, lines_s: -l); "
+        f"launches {launches}; K1 calls by row length {rows}; loaded "
+        f"index == phase 8's, -l output == phase 8's")
+    return launches, rows
+
+
+def kernel_entry(name, source, replaces, launches, stats, later=(0, 0),
+                 **extra):
+    """One row of the kernels line; ``later`` holds the row's launches in
+    phases 8 and 9."""
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, **stats, **extra}
+            "replaces": replaces, "launches": launches,
+            "launches_phase8": later[0], "launches_phase9": later[1],
+            **stats, **extra}
 
 
 def main() -> int:
@@ -687,7 +859,7 @@ def main() -> int:
     # ---- phase 2
     k1 = {B: check_psort(B, n, Np) for B, n, Np in
           ((256, LEN, 1 << 17), (1, 4_600_000, 1 << 23),
-           (6, 4_600_000, 1 << 23))}
+           (6, 4_600_000, 1 << 23), (512, 52_000, 1 << 16))}
     for e in k1.values():
         log(f"phase 2: K1 psort {e}")
     k2 = {e["path"]: e for e in check_bcount(13, matrix_rows=(768,))}
@@ -716,7 +888,7 @@ def main() -> int:
         # ---- phases 4 to 7
         t = time.time()
         fof, seqs = write_genomes(d)
-        qfof = write_queries(d, seqs)
+        qfof, mutants = write_queries(d, seqs)
         log(f"phase 4: wrote {G} genomes of {LEN} bp + {NQ} queries in "
             f"{time.time() - t:.1f} s")
         spy = Spy()
@@ -730,6 +902,7 @@ def main() -> int:
             q15 = phase_query(d, fof, qfof, hidx, spy, 5)
             require(q15["bcount"] > 0 and spy.sparse_hits > 0,
                     "-Q -S 15 did not take the K2 top-k route")
+            hidx15 = hidx
             hidx, m10, idx = phase_matrix(d, fof, spy, 10, 6)
             require(m10["pcount"] == 1 and m10["bcount"] == 0
                     and m10["psort"] > 0,
@@ -741,6 +914,17 @@ def main() -> int:
             require(q10["pcount"] == 1 and q10["bcount"] == 0
                     and spy.sparse_hits == 0,
                     f"-Q -S 10 did not count through one K3 launch: {q10}")
+            del idx
+            # ---- phases 8 and 9
+            t = time.time()
+            allfa, qfa = write_lines_inputs(d, fof, seqs, mutants)
+            del seqs, mutants
+            log(f"phase 8: wrote {G} genomes as one multi-FASTA + "
+                f"{NQ + N_MID + N_SHORT} query records in "
+                f"{time.time() - t:.1f} s")
+            l8, rows8, idx8, out8 = phase_lines(d, allfa, qfa, hidx15, spy)
+            del hidx15
+            l9, rows9 = phase_dump(d, idx8, qfa, out8, spy)
         finally:
             spy.close()
 
@@ -750,10 +934,17 @@ def main() -> int:
     ecoli = "not on the smoke's main path (E. coli-sized records)"
     off_path = ("not on the main path (phase 2 only): the port counts a "
                 "whole call in one launch")
+    def k1_later(n):
+        return rows8.get(n, 0), rows9.get(n, 0)
     print(json.dumps({"kernels": [
         kernel_entry("psort sort_i32_pow2_batch (K1, 256 x 2^17)", *k1_src,
                      m15["psort"], k1[256],
-                     launches_from="phase 4, -M -S 15"),
+                     launches_from="phase 4, -M -S 15",
+                     later=k1_later(1 << 17)),
+        kernel_entry("psort sort_i32_pow2_batch (K1, 512 x 2^16, lines "
+                     "mode)", *k1_src, rows8.get(1 << 16, 0), k1[512],
+                     launches_from="phase 8, -i/-l -S 15: the 40-65 kb "
+                     "contigs", later=k1_later(1 << 16)),
         kernel_entry("psort sort_i32_pow2_batch (K1, 1 x 2^23)", *k1_src, 0,
                      k1[1], launches_from=ecoli),
         kernel_entry("psort sort_i32_pow2_batch (K1, 6 x 2^23)", *k1_src, 0,
@@ -763,7 +954,9 @@ def main() -> int:
                      launches_from="phase 4, -M -S 15"),
         kernel_entry("bcount _bcount_call (K2, -Q shape)", *k2_src,
                      q15["bcount"], k2["-Q"],
-                     launches_from="phase 5, -I/-Q -S 15"),
+                     later=(l8["bcount"], l9["bcount"]),
+                     launches_from="phase 5, -I/-Q -S 15; phases 8 and 9: "
+                     "-l in 96-query blocks"),
         kernel_entry("bcount _bcount_call (K2, 96 x 102,400 rows)", *k2_src,
                      0, k2["rows"],
                      launches_from="not on the main path (phase 2 only)"),
@@ -784,6 +977,7 @@ def main() -> int:
                      launches_from="phase 6, -M -S 10"),
         kernel_entry("pcount _count_call (K3, shape e, the -Q call)",
                      *k3_src, q10["pcount"], k3["e"],
+                     later=(l8["pcount"], l9["pcount"]),
                      launches_from="phase 7, -I/-Q -S 10"),
         kernel_entry("pcount _count_call (K3, shape f, the -M call at S=11)",
                      *k3_src, 0, k3["f"],

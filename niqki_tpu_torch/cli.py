@@ -2,9 +2,9 @@
 
 The counterpart of ``niqki_tpu/cli.py``, with the same flag surface, usage
 text and operator messages; the run uses the port's SketchIndex and engine
-for -I, -M, -Q, -O, -S/-K/-W/-H/-J and -G. It runs on the card unless
-``--device cpu`` is given, and raises when torch sees no card. Flags whose
-paths are not ported yet exit with an error naming them.
+for -I, -i, -M, -Q, -l, -D, -L, -O, -S/-K/-W/-H/-J and -G. It runs on the
+card unless ``--device cpu`` is given, and raises when torch sees no card.
+Flags whose paths are not ported yet exit with an error naming them.
 
 Run as ``python -m niqki_tpu_torch.cli`` or via ``niqki-tpu-torch``.
 """
@@ -100,8 +100,8 @@ USAGE = """
   --device <cuda|cpu>           Device to run on (default cuda).
   --backend <torch|numpy>       Compute backend (default torch).
   --binary-hits                 The reference's unreachable binary hit format.
-  Not ported yet (refused): -L, -D, -i, -l, -Iddl, --mesh, --profile,
-  --save-sharded, --load-sharded.
+  Not ported yet (refused): -Iddl, --mesh, --profile, --save-sharded,
+  --load-sharded.
 """
 
 
@@ -196,9 +196,8 @@ def _row(label: str, value) -> str:
     return f"| {label:<34}|{str(value):>30} |"
 
 
-_NOT_PORTED = (("load", "-L"), ("dump", "-D"), ("indexlines", "-i"),
-               ("querylines", "-l"), ("indexdownload", "-Iddl"),
-               ("mesh", "--mesh"), ("profile", "--profile"),
+_NOT_PORTED = (("indexdownload", "-Iddl"), ("mesh", "--mesh"),
+               ("profile", "--profile"),
                ("save_sharded", "--save-sharded"),
                ("load_sharded", "--load-sharded"))
 
@@ -230,10 +229,19 @@ def main(argv=None) -> int:
 def _run_inner(args) -> int:
     params = SketchParams(lF=args.sketch, K=args.kmer, W=args.word,
                           H=args.HHL, min_fract=args.minjac)
-    index = SketchIndex(params, device=args.device, backend=args.backend)
     print("+-------------------------------------------------------------------+")
     print("|                            Informations                           |")
     print("+-----------------------------------+-------------------------------+")
+    if args.load:
+        # the reference's load constructor takes min_score from the dump
+        # and ignores -J; a missing dump crashes the reference, so it
+        # prints the message and exits non-zero
+        if not _openable(args.load):
+            return 1
+        index = SketchIndex.load(args.load, device=args.device,
+                                 backend=args.backend)
+    else:
+        index = SketchIndex(params, device=args.device, backend=args.backend)
     if args.Genomes_sizes:
         index.params = index.params.with_best_H(args.Genomes_sizes)
         print(f"I chosed H={index.params.H}")
@@ -249,13 +257,22 @@ def _run_inner(args) -> int:
             out.close()
             return 0
         engine.insert_fof_whole(index, args.index)
+    if args.indexlines:
+        if not _openable(args.indexlines):
+            out.close()  # a closed, valid gzip, not a half-written one
+            return 1     # the reference crashes here
+        engine.insert_file_lines(index, args.indexlines)
+    if args.dump:
+        index.dump(args.dump)
 
     t_indexed = time.time()
     print(_row("Indexing lasted (s)", f"{t_indexed - t_start:g}"))
 
     if args.matrix:
         matrix_ok = _openable(args.matrix)
-        if not args.index:
+        # the reference indexes the matrix fof whenever -I and -i are
+        # absent, on top of a loaded index too
+        if not args.index and not args.indexlines:
             if not matrix_ok:
                 print(f"Unable to open the file "
                       f"'{os.path.basename(args.matrix)}'")
@@ -272,6 +289,11 @@ def _run_inner(args) -> int:
             out.close()
             return 1
         engine.query_fof_whole(index, args.query, out, pretty=pretty)
+    if args.querylines:
+        if not _openable(args.querylines):
+            out.close()
+            return 1     # the reference crashes here
+        engine.query_file_lines(index, args.querylines, out, pretty=pretty)
     out.close()
 
     t_end = time.time()

@@ -1,10 +1,11 @@
-"""File-level entry points of the port: the -I/-M fof ingest, the -M
-all-vs-all matrix and the -Q whole-genome hit query.
+"""File-level entry points of the port: the -I/-M fof ingest, the -i
+per-record ingest, the -M all-vs-all matrix, the -Q whole-genome hit query
+and the -l per-record hit query.
 
 The port's counterpart of ``niqki_tpu/engine.py``, with the reference's
 path rules: -I/-M resolve fof entries from the fof's own directory, -Q from
-the CWD; names are the fof lines as written; missing entries are skipped;
-ids follow fof line order.
+the CWD; names are the fof lines as written (the header lines under -i and
+-l); missing entries are skipped; ids follow fof line order.
 
 The matrix self-join runs on the index's own bit-planes: each block is a
 device-side re-encode + count (K2) + uint16 wrap + top-k, and only
@@ -28,14 +29,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from . import hostmem, native
-from .index import SketchIndex
-from .io.fasta import exists, read_fof, read_query_fof
+from .index import SketchIndex, hits_from_counts_batch
+from .io.fasta import exists, read_fof, read_query_fof, read_records
 from .io.writers import (GzTextWriter, write_binary_hits, write_matrix_header,
                          write_matrix_row, write_pretty_hits)
 from .ops import bcount
 
-__all__ = ["insert_fof_whole", "query_fof_whole", "query_matrix",
-           "query_file_matrix", "query_fof_matrix"]
+__all__ = ["insert_fof_whole", "insert_file_lines", "query_fof_whole",
+           "query_file_lines", "query_matrix", "query_file_matrix",
+           "query_fof_matrix"]
 
 
 def _fof_entries(fof_path: str):
@@ -53,6 +55,13 @@ def insert_fof_whole(index: SketchIndex, fof_path: str) -> None:
     sketches = index.sketch_files([p for _, p in entries])
     for (name, _), sk in zip(entries, sketches):
         index.insert_sketch(sk, name)
+
+
+def insert_file_lines(index: SketchIndex, path: str) -> None:
+    """-i: each record of one FASTA/FASTQ file is an entry. (The reference
+    chdirs to the file's directory and opens its basename there: the same
+    file.)"""
+    index.insert_file_lines(path)
 
 
 def _stack_sketches(sks) -> np.ndarray:
@@ -93,6 +102,50 @@ def query_fof_whole(index: SketchIndex, fof_path: str, out: GzTextWriter,
             fut = pre.submit(index.sketch_files, chunks[i + 1]) \
                 if i + 1 < len(chunks) else None
             process(chunk, sks)
+
+
+def query_file_lines(index: SketchIndex, path: str, out: GzTextWriter,
+                     pretty: bool = True, batch: int = 1 << 15) -> None:
+    """-l: each record of one file is a query named by its header; rows
+    stream in file order. Records are sketched and counted a chunk of
+    ``batch`` records at a time (halved while batch * G > 2^28, which
+    bounds the dense (batch, G) counts). Pretty rows take the sparse K2
+    top-k route when the index is eligible, else dense counts through the
+    native formatter; binary rows take hits_from_counts_batch."""
+    if index.backend == "numpy":
+        for header, seq in read_records(path, index.params.K):
+            hits = index.hits_from_counts(
+                index.counts(index.sketch_records([seq])[None, :])[0])
+            if pretty:
+                write_pretty_hits(out, header, hits, index.names,
+                                  index.params.F)
+            else:
+                write_binary_hits(out, header, hits)
+        return
+    while batch > (1 << 11) and batch * max(index.G, 1) > (1 << 28):
+        batch //= 2
+    fmt = None
+    if pretty and native.available():
+        fmt = native.HitsFormatter(index.names, index.params.F,
+                                   index.params.min_score)
+    for part, q in index.query_sketch_stream(
+            index._iter_packed_with_headers(path), batch):
+        headers = [r[0] for r in part]
+        if fmt is not None and len(q):
+            buf = index.pretty_hits_batch(q, headers)
+            if buf is None:
+                buf = fmt.format(index.counts(q), headers)
+            out.write(buf)
+            continue
+        counts = index.counts(q) if len(q) else \
+            np.zeros((0, index.G), np.int32)
+        all_hits = hits_from_counts_batch(counts, index.params.min_score)
+        for r, hits in zip(part, all_hits):
+            if pretty:
+                write_pretty_hits(out, r[0], hits, index.names,
+                                  index.params.F)
+            else:
+                write_binary_hits(out, r[0], hits)
 
 
 class _ParallelMatrixFmt:

@@ -9,7 +9,10 @@ is in bucket (slot i, fingerprint v) iff sketches[g, i] == v.
 
 The index's device is explicit: ``SketchIndex(params, device)`` runs on
 ``cuda`` unless the caller asks for ``cpu``, and raises when torch sees no
-card. Lines mode, dumps, checkpoints and the multi-device layouts are not
+card. Lines mode (a record per entry) sketches records over
+``HOST_SKETCH_MAX`` bases on the device and shorter ones on the host's
+native sketcher; ``dump``/``load`` read and write the reference binary's
+dump format (``dumpfmt``). Checkpoints and the multi-device layouts are not
 ported yet.
 """
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from . import hostmem, native, oracle
+from .dumpfmt import load_dump, save_dump
 from .io.fasta import read_records
 from .ops import bcount, pcount
 from .ops.sketch import INT32_MAX, dispatch_sketch_packed_batch, pack_codes
@@ -51,7 +55,41 @@ def hits_from_counts(counts: np.ndarray, min_score: int
     return [(int(c[g]), int(g)) for g in sel[order]]
 
 
+def hits_from_counts_batch(counts: np.ndarray, min_score: int
+                           ) -> list[list[tuple[int, int]]]:
+    """hits_from_counts over a whole (B, G) block with one argsort (the
+    per-row numpy calls dominate at read scale). The key -(count * G + gid)
+    ascends in count-desc, gid-desc order; entries below the threshold key
+    to +1, after every survivor, and the sorted columns are the gids."""
+    c = np.asarray(counts)
+    B, G = c.shape
+    if G == 0:
+        return [[] for _ in range(B)]
+    keys = hostmem.big_empty((B, G), np.int64)
+    keys[:] = c            # widen first: count * G overflows int32
+    keys *= -G
+    keys -= np.arange(G, dtype=np.int64)[None, :]
+    keys[c < min_score] = 1
+    order = np.argsort(keys, axis=1, kind="stable")
+    nhits = (c >= min_score).sum(axis=1)
+    return [[(int(c[b, g]), int(g)) for g in order[b, :nhits[b]]]
+            for b in range(B)]
+
+
 class SketchIndex:
+    # Lines-mode records pad to 256-base buckets, not the whole-genome
+    # 2^14 floor (a 150 bp read in a 16 kb row wastes ~100x the work).
+    LINES_MIN_PAD = 256
+    # Lines-mode records of at most this many bases sketch on the host
+    # (native rolling sketcher + densify on a thread pool), longer ones on
+    # the device. NIQKI_TPU_HOST_READS overrides it (0: every record on the
+    # device). The value is the JAX package's, set on its TPU.
+    HOST_SKETCH_MAX = 32768
+    # Per-chunk base budget of the lines-mode streams (64 Mbp, 16 MB
+    # packed): the record bound alone would let chromosome-sized records
+    # make a chunk arbitrarily large.
+    CHUNK_BASES = 1 << 26
+
     def __init__(self, params: SketchParams, device="cuda",
                  backend: str = "torch"):
         self.params = params
@@ -115,8 +153,9 @@ class SketchIndex:
         return self._finalize_tables(self._device_tables(recs))
 
     def _host_sketch_route(self) -> bool:
-        """NIQKI_TPU_SKETCH=host sketches whole files on the host's native
-        rolling sketcher instead of the device (the default)."""
+        """NIQKI_TPU_SKETCH=host sketches whole files and every lines-mode
+        record on the host's native rolling sketcher instead of the device
+        (the default)."""
         return (os.environ.get("NIQKI_TPU_SKETCH") == "host"
                 and self.backend != "numpy" and native.available())
 
@@ -149,6 +188,131 @@ class SketchIndex:
             print(f"Warning: skipping unreadable file '{path}': {e}",
                   file=sys.stderr)
             return []
+
+    def _iter_packed_with_headers(self, path: str):
+        """Yield (header, words, n_bases, exc_idx) per record of one file,
+        streamed: nothing beyond the current chunk is held."""
+        p = self.params
+        if native.available():
+            yield from native.read_packed_records_chunked(path, p.K)
+            return
+        for h, s in read_records(path, p.K):
+            yield (h, *pack_codes(*oracle.encode_record(s, p.K), p.K))
+
+    def sketch_packed_records(self, packed_records,
+                              min_pad: int = 1 << 14) -> list[np.ndarray]:
+        """One final sketch (-1 empty) per packed (words, n, exc) record,
+        sketched on the device in batches of one shape each."""
+        if not packed_records:
+            return []
+        batches = dispatch_sketch_packed_batch(packed_records, self.params,
+                                               self.device, min_pad=min_pad)
+        return self._collect_packed(len(packed_records), batches)
+
+    def _collect_packed(self, n: int, batches) -> list[np.ndarray]:
+        """Each record's device table finalized on its own (densified);
+        records without k-mers get an empty sketch."""
+        out: list = [None] * n
+        for chunk, dev in batches:
+            host = dev.cpu().numpy()
+            for row, i in enumerate(chunk):
+                out[i] = self._finalize_tables([host[row]])
+        for i, v in enumerate(out):
+            if v is None:
+                out[i] = np.full(self.params.F, -1, np.int32)
+        return out
+
+    def _host_sketch_packed(self, recs) -> list[np.ndarray]:
+        """Final sketches (-1 empty) of short packed records on the host's
+        rolling sketcher plus densify, one native call for the group;
+        bit-exact with the device route."""
+        p = self.params
+        return list(native.sketch_packed_batch(
+            recs, p.lF, p.K, p.W, p.H, p.mask_M, p.maximal_remainder))
+
+    def _sketch_stream(self, rec_iter, chunk_records: int = 1 << 15):
+        """Yield (records_chunk, sketches) pairs from a packed-record
+        stream with one chunk of read-ahead: chunk i+1 is read and its
+        device work queued before chunk i is collected, so peak memory is
+        two chunks, never the whole file. Chunks are bounded by records and
+        by bases (CHUNK_BASES).
+
+        Records over HOST_SKETCH_MAX bases (NIQKI_TPU_HOST_READS) sketch on
+        the device (K1); shorter ones on the host sketcher on a thread
+        pool, whose threads touch no tensor. A chunk of short records only
+        never touches the device. NIQKI_TPU_SKETCH=host sketches every
+        record on the host."""
+        host_max = int(os.environ.get("NIQKI_TPU_HOST_READS",
+                                      self.HOST_SKETCH_MAX))
+        if self._host_sketch_route():
+            host_max = 1 << 62
+        use_host = native.available()
+        pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+        pending = None
+
+        def take_chunk():
+            part, bases = [], 0
+            for rec in rec_iter:
+                part.append(rec)
+                bases += rec[2]
+                if len(part) >= chunk_records or bases >= self.CHUNK_BASES:
+                    break
+            return part
+
+        try:
+            while True:
+                part = take_chunk()
+                work = None
+                if part:
+                    recs = [r[1:] for r in part]
+                    short = [i for i, r in enumerate(recs)
+                             if use_host and r[1] <= host_max]
+                    short_set = set(short)
+                    batches = []
+                    if len(short) < len(recs):
+                        # short records become placeholders without
+                        # k-mers, which the dispatch leaves out
+                        long_recs = [(None, 0, None) if i in short_set
+                                     else r for i, r in enumerate(recs)]
+                        batches = dispatch_sketch_packed_batch(
+                            long_recs, self.params, self.device,
+                            min_pad=self.LINES_MIN_PAD)
+                    grp = max(64, -(-len(short) // 32))
+                    futs = [(short[lo:lo + grp], pool.submit(
+                        self._host_sketch_packed,
+                        [recs[i] for i in short[lo:lo + grp]]))
+                        for lo in range(0, len(short), grp)]
+                    work = (part, batches, futs)
+                if pending is not None:
+                    ppart, pbatches, pfuts = pending
+                    if pbatches:
+                        sks = self._collect_packed(len(ppart), pbatches)
+                    else:  # every row comes from the pool
+                        sks = [None] * len(ppart)
+                    for idxs, fut in pfuts:
+                        for i, sk in zip(idxs, fut.result()):
+                            sks[i] = sk
+                    yield ppart, sks
+                if not part:
+                    return
+                pending = work
+        finally:
+            pool.shutdown(wait=False)
+
+    def insert_file_lines(self, path: str,
+                          chunk_records: int = 1 << 15) -> list[int]:
+        """Each record of the file becomes an entry named by its header
+        line (with its '>'/'@'), streamed in chunks of ``chunk_records``
+        records with bounded memory."""
+        if self.backend == "numpy":
+            return [self.insert_sketch(self.sketch_records([s]), h)
+                    for h, s in read_records(path, self.params.K)]
+        gids = []
+        for part, sks in self._sketch_stream(
+                self._iter_packed_with_headers(path), chunk_records):
+            gids.extend(self.insert_sketch(sk, r[0])
+                        for r, sk in zip(part, sks))
+        return gids
 
     def _finalize_tables(self, tables) -> np.ndarray:
         """Sequential per-record min-merge + densify (densified fillers of
@@ -396,6 +560,22 @@ class SketchIndex:
                                   == mat[None]).sum(-1, dtype=torch.int32)
         return out.cpu().numpy()
 
+    def query_sketch_stream(self, rec_iter, chunk_records: int = 1 << 15):
+        """Yield (records_chunk, stacked (n, F) int32 sketches) pairs from
+        a packed-record stream, with bounded memory."""
+        for part, sks in self._sketch_stream(rec_iter, chunk_records):
+            q = hostmem.big_empty((len(sks), self.params.F), np.int32)
+            for i, s in enumerate(sks):
+                q[i] = s
+            yield part, q
+
+    def query_counts_stream(self, rec_iter, chunk_records: int = 1 << 15):
+        """Yield (records_chunk, (n, G) counts) pairs from a packed-record
+        stream, one count call per chunk."""
+        for part, q in self.query_sketch_stream(rec_iter, chunk_records):
+            yield part, (self.counts(q) if len(q)
+                         else np.zeros((0, self.G), np.int32))
+
     def hits_from_counts(self, c: np.ndarray) -> list[tuple[int, int]]:
         return hits_from_counts(c, self.params.min_score)
 
@@ -464,3 +644,20 @@ class SketchIndex:
                                               sanitized=True)
 
         return self._emit_sparse_rows(q, headers, vals, idx, over, dense_fn)
+
+    # ------------------------------------------------------------------
+    # the reference binary's dump format (-D / -L)
+    def dump(self, path: str) -> None:
+        save_dump(path, self.params, self.matrix(), self.names)
+
+    @classmethod
+    def load(cls, path: str, device="cuda",
+             backend: str = "torch") -> "SketchIndex":
+        """The index of a dump, on ``device``: its params come from the
+        dump's header (min_score included), its matrix and names from the
+        dump."""
+        hdr, mat, names = load_dump(path)
+        idx = cls(hdr.params(), device=device, backend=backend)
+        idx._mat = mat
+        idx.names = list(names)
+        return idx

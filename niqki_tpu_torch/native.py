@@ -1,10 +1,11 @@
 """ctypes bindings of the native host library (``native/niqki_host.cpp``).
 
 The port's counterpart of ``niqki_tpu/native.py``, binding only the entry
-points the port calls: the packed FASTA/FASTQ reader, densify, the host
-whole-file sketcher, the host equality count and the matrix and hit
-formatters. The library is built from the repository's ``native/`` at first
-use (``make -C native``). Its Makefile probes for libdeflate with
+points the port calls: the packed FASTA/FASTQ reader (per record and
+chunked), densify, the host whole-file and per-record batch sketchers, the
+dump's bucket-stream scanner, the host equality count and the matrix and
+hit formatters. The library is built from the repository's ``native/`` at
+first use (``make -C native``). Its Makefile probes for libdeflate with
 ``printf '\\#include <libdeflate.h>'``, which keeps the backslash under GNU
 make 4.3+ and so passes where libdeflate is absent; when that build leaves
 no library, it is built once more with ``HAVE_DEFLATE=0`` (zlib only, the
@@ -65,9 +66,21 @@ def _bind(lib) -> None:
         ctypes.POINTER(i64), ctypes.POINTER(i64)]
     lib.nq_densify.restype = None
     lib.nq_densify.argtypes = [i32c, i64]
+    lib.nq_reader_next_chunk.restype = i64
+    lib.nq_reader_next_chunk.argtypes = [
+        vp, i64, i64, ctypes.POINTER(vp), ctypes.POINTER(vp),
+        ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(vp),
+        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(vp)]
     lib.nq_sketch_packed_whole.restype = None
     lib.nq_sketch_packed_whole.argtypes = [u32c, i64c, i64c, i32c, i64c] \
         + [i64] * 7 + [i32c]
+    lib.nq_sketch_packed_batch.restype = None
+    lib.nq_sketch_packed_batch.argtypes = [u32c, i64c, i64c, i32c, i64c] \
+        + [i64] * 7 + [i32c]
+    lib.nq_scan_dump_stream.restype = i64
+    lib.nq_scan_dump_stream.argtypes = [
+        u32c, i64, i64, ctypes.POINTER(i64), ctypes.POINTER(i64),
+        ctypes.POINTER(i64), u32c, i64c]
     lib.nq_count_eq.restype = None
     lib.nq_count_eq.argtypes = [i32c, i64, i32c, i64, i64, i64, i32c]
     lib.nq_format_hits.restype = i64
@@ -154,6 +167,59 @@ def read_packed_records(path: str, K: int, ftype: str | None = None
         lib.nq_reader_close(h)
 
 
+def _as_np(ptr, n: int, ctype, np_dtype) -> np.ndarray:
+    """A copy of n ``ctype`` values at ``ptr`` as a numpy array."""
+    if n == 0:
+        return np.zeros(0, np_dtype)
+    return np.ctypeslib.as_array(
+        ctypes.cast(ptr, ctypes.POINTER(ctype)), (n,)).astype(np_dtype,
+                                                              copy=True)
+
+
+def read_packed_records_chunked(path: str, K: int, ftype: str | None = None,
+                                max_records: int = 1 << 15,
+                                max_bases: int = 1 << 26):
+    """Yield (header, packed_words, n_bases, exc_idx) per record like
+    read_packed_records, through one native call per chunk of at most
+    ``max_records`` records or ``max_bases`` bases; each record's arrays
+    are views into the chunk's concatenated copies (a ctypes round trip
+    per record costs more than the C++ work at read length)."""
+    lib = _require()
+    ft = {None: 0, "A": 1, "Q": 2}[ftype]
+    h = lib.nq_reader_open(path.encode(), K, ft)
+    if not h:
+        raise OSError(f"cannot open {path}")
+    try:
+        pw, pwo, pnb, pe, peo, pho = (ctypes.c_void_p() for _ in range(6))
+        ph = ctypes.c_char_p()
+        while True:
+            n = lib.nq_reader_next_chunk(
+                h, max_records, max_bases, ctypes.byref(pw),
+                ctypes.byref(pwo), ctypes.byref(pnb), ctypes.byref(pe),
+                ctypes.byref(peo), ctypes.byref(ph), ctypes.byref(pho))
+            if n == 0:
+                return
+            word_off = _as_np(pwo, n + 1, ctypes.c_int64, np.int64)
+            n_bases = _as_np(pnb, n, ctypes.c_int64, np.int64)
+            exc_off = _as_np(peo, n + 1, ctypes.c_int64, np.int64)
+            header_off = _as_np(pho, n + 1, ctypes.c_int64, np.int64)
+            nw, ne = int(word_off[-1]), int(exc_off[-1])
+            words = hostmem.big_empty((nw,), np.uint32)
+            if nw:
+                np.copyto(words, np.ctypeslib.as_array(
+                    ctypes.cast(pw, ctypes.POINTER(ctypes.c_uint32)), (nw,)))
+            exc = _as_np(pe, ne, ctypes.c_int32, np.int32)
+            headers = ctypes.string_at(ph, int(header_off[-1]))
+            for i in range(n):
+                yield (headers[header_off[i]:header_off[i + 1]].decode(
+                           "utf-8", "replace"),
+                       words[word_off[i]:word_off[i + 1]],
+                       int(n_bases[i]),
+                       exc[exc_off[i]:exc_off[i + 1]])
+    finally:
+        lib.nq_reader_close(h)
+
+
 def _concat_recs(recs):
     """(words, word_off, n_bases, exc, exc_off) concatenated wire arrays of
     packed (words, n_bases, exc_idx) records."""
@@ -182,6 +248,21 @@ def sketch_packed_whole(recs, lF: int, K: int, W: int, H: int,
         out.fill(-1)
         return out
     lib.nq_sketch_packed_whole(*_concat_recs(recs), len(recs), K, lF, W, H,
+                               mask_M, max_rem, out)
+    return out
+
+
+def sketch_packed_batch(recs, lF: int, K: int, W: int, H: int,
+                        mask_M: int, max_rem: int) -> np.ndarray:
+    """(B, F) final sketches (-1 empty, densified) of packed (words,
+    n_bases, exc_idx) records, each on its own, in one native call on the
+    host's rolling sketcher. The GIL is released."""
+    lib = _require()
+    B = len(recs)
+    out = hostmem.big_empty((B, 1 << lF), np.int32)
+    if B == 0:
+        return out
+    lib.nq_sketch_packed_batch(*_concat_recs(recs), B, K, lF, W, H,
                                mask_M, max_rem, out)
     return out
 
@@ -223,6 +304,34 @@ def count_eq(q: np.ndarray, mat: np.ndarray, fp_range: int) -> np.ndarray:
     with ThreadPoolExecutor(max_workers=threads) as ex:
         list(ex.map(run, range(0, Q, block)))
     return out
+
+
+class DumpStreamScanner:
+    """Incremental scanner of a NIQKI dump's [size][gids...] bucket stream:
+    ``feed`` uint32 word chunks and get (gids, buckets, consumed) back;
+    ``done`` turns true once all ``n_buckets`` are consumed (the words
+    after them are the names)."""
+
+    def __init__(self, n_buckets: int):
+        self._lib = _require()
+        self.n_buckets = n_buckets
+        self._bucket = ctypes.c_int64(0)
+        self._remaining = ctypes.c_int64(0)
+
+    @property
+    def done(self) -> bool:
+        return self._bucket.value >= self.n_buckets
+
+    def feed(self, words: np.ndarray):
+        words = np.ascontiguousarray(words, np.uint32)
+        gids = np.empty(len(words), np.uint32)
+        buckets = np.empty(len(words), np.int64)
+        consumed = ctypes.c_int64(0)
+        n = self._lib.nq_scan_dump_stream(
+            words, len(words), self.n_buckets,
+            ctypes.byref(self._bucket), ctypes.byref(self._remaining),
+            ctypes.byref(consumed), gids, buckets)
+        return gids[:n], buckets[:n], consumed.value
 
 
 class _FmtBuf:

@@ -211,3 +211,75 @@ def test_pcount_rejects_misaligned_lanes(card):
     qp = torch.zeros((4, 48), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="Fp % 32"):
         pcount._count_call(qp, qp)
+
+
+def _write_records(path, lens, seed=3):
+    """One FASTA record per length, cut from two random 110 kb ancestors
+    at 1% point mutation."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    anc = [rng.choice(alpha, 110_000) for _ in range(2)]
+    with open(path, "wb") as f:
+        for i, n in enumerate(lens):
+            a = anc[i % 2]
+            st = rng.integers(0, len(a) - n + 1)
+            s = a[st:st + n].copy()
+            m = rng.random(n) < 0.01
+            s[m] = rng.choice(alpha, int(m.sum()))
+            f.write(b">r%d\n%s\n" % (i, s.tobytes()))
+    return str(path)
+
+
+# 2 records padded to 2^17 and 3 to 2^16 bases on the device (over
+# HOST_SKETCH_MAX), 40 on the host sketcher
+_LONG = (100_000, 65_000, 40_000, 52_000, 99_000)
+_LENS = _LONG + tuple(range(150, 30_000, 740))
+
+
+@pytest.mark.parametrize("mode", ["auto", "bcount"])
+def test_lines_and_load_on_card_match_cpu(card, tmp_path, monkeypatch, mode):
+    """insert_file_lines, query_file_lines and load on the card equal the
+    port on the CPU; NIQKI_TPU_COUNT=bcount counts -l through K2."""
+    from niqki_tpu_torch import SketchIndex, SketchParams, engine
+    from niqki_tpu_torch.io.writers import GzTextWriter
+    monkeypatch.setenv("NIQKI_TPU_COUNT", mode)
+    path = _write_records(tmp_path / "r.fa", _LENS)
+    p = SketchParams(lF=12, min_fract=0.05)
+    out = {}
+    kernels.reset_launches()
+    for dev in ("cpu", "cuda"):
+        idx = SketchIndex(p, device=dev)
+        idx.insert_file_lines(path)
+        idx.dump(str(tmp_path / f"{dev}.bin"))
+        back = SketchIndex.load(str(tmp_path / f"{dev}.bin"), device=dev)
+        assert back.device.type == dev and back.names == idx.names
+        np.testing.assert_array_equal(back.matrix(), idx.matrix())
+        for name, ix in (("idx", idx), ("back", back)):
+            with GzTextWriter(str(tmp_path / f"{dev}{name}.gz")) as w:
+                engine.query_file_lines(ix, path, w)
+            with open(tmp_path / f"{dev}{name}.gz", "rb") as f:
+                out[dev, name] = f.read()
+        out[dev] = idx
+    np.testing.assert_array_equal(out["cuda"].matrix(), out["cpu"].matrix())
+    assert out["cuda"].names == out["cpu"].names
+    import gzip
+    want = gzip.decompress(out["cpu", "idx"])
+    assert b">r0:1 " in want
+    for key in (("cuda", "idx"), ("cuda", "back"), ("cpu", "back")):
+        assert gzip.decompress(out[key]) == want
+    assert kernels.LAUNCHES["psort"] > 0
+    assert (kernels.LAUNCHES["bcount"] > 0) == (mode == "bcount")
+
+
+def test_sketch_stream_launches_k1_for_long_records_only(card, tmp_path):
+    """A chunk of short records launches no K1; a chunk with long records
+    launches K1 once per padded length (2^16 and 2^17 here)."""
+    from niqki_tpu_torch import SketchIndex, SketchParams
+    idx = SketchIndex(SketchParams(lF=15), device="cuda")
+    for lens, launches in ((_LENS[len(_LONG):], 0), (_LENS, 2)):
+        path = _write_records(tmp_path / f"{launches}.fa", lens)
+        kernels.reset_launches()
+        n = sum(len(part) for part, _ in idx._sketch_stream(
+            idx._iter_packed_with_headers(path)))
+        assert n == len(lens)
+        assert kernels.LAUNCHES["psort"] == launches

@@ -132,8 +132,9 @@ def test_cli_matrix_matches_jax(tmp_path, monkeypatch, flags):
     assert _gz("t.gz") == _gz("j.gz")
 
 
-@pytest.mark.parametrize("flag", [["-L", "x.bin"], ["-l", "x.fa"],
-                                  ["--mesh", "2x4"], ["-D", "x.bin"]])
+@pytest.mark.parametrize("flag", [["-Iddl", "x.txt"], ["--profile", "p"],
+                                  ["--mesh", "2x4"],
+                                  ["--save-sharded", "x"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     assert cli.main(["-M", f"{FIXDIR}/fof_tiny.txt", *flag]) == 2
     assert "not ported yet" in capsys.readouterr().err
@@ -151,7 +152,7 @@ class _NoJax:
         return None
 
 sys.meta_path.insert(0, _NoJax())
-fof, qfof, out_m, out_q = sys.argv[1:5]
+fof, qfof, multi, d = sys.argv[1:5]
 
 def run(args):                           # as `python -m niqki_tpu_torch.cli`
     sys.argv = ["niqki_tpu_torch.cli", *args, "--device", "cpu"]
@@ -160,9 +161,13 @@ def run(args):                           # as `python -m niqki_tpu_torch.cli`
     except SystemExit as e:
         assert e.code == 0, e.code
 
-run(["-M", fof, "-S", "16", "-K", "21", "-O", out_m])
+run(["-M", fof, "-S", "16", "-K", "21", "-O", d + "/m.gz"])
 run(["-I", fof, "-Q", qfof, "-S", "12", "-K", "21", "-J", "0.05",
-     "-O", out_q])
+     "-O", d + "/q.gz"])
+run(["-S", "5", "-i", multi, "-l", multi, "-O", d + "/l.gz"])
+run(["-I", fof, "-S", "8", "-W", "10", "-H", "3", "-D", d + "/d.bin",
+     "-O", d + "/n.gz"])
+run(["-L", d + "/d.bin", "-Q", qfof, "-O", d + "/lq.gz"])
 bad = [m for m in sys.modules
        if m == "niqki_tpu" or m.startswith("niqki_tpu.")]
 assert not bad, bad
@@ -173,11 +178,10 @@ print("OK", preloaded)
 
 
 def test_matrix_runs_with_jax_blocked(tmp_path):
-    """The port's -M and -I/-Q import nothing of jax or niqki_tpu: a fresh
-    CPU process whose import system refuses jax runs both to the golden
-    bytes and to niqki_tpu's bytes, and ends with no niqki_tpu module
-    loaded."""
-    out, qout = tmp_path / "m.gz", tmp_path / "q.gz"
+    """The port's -M, -I/-Q, -i/-l and -D then -L/-Q import nothing of jax
+    or niqki_tpu: a fresh CPU process whose import system refuses jax runs
+    them all to the golden bytes and to niqki_tpu's bytes, and ends with no
+    niqki_tpu module loaded."""
     qfof = tmp_path / "q.txt"
     qfof.write_text("".join(f"{FIXDIR}/{n}\n" for n in
                             ("tiny2.fa", "multi.fa", "tiny1.fa")))
@@ -186,16 +190,21 @@ def test_matrix_runs_with_jax_blocked(tmp_path):
                                                               ""))
     res = subprocess.run(
         [sys.executable, "-c", _BLOCK_JAX, f"{FIXDIR}/fof_tiny.txt",
-         str(qfof), str(out), str(qout)], cwd=tmp_path, env=env,
-        capture_output=True, text=True, timeout=300)
+         str(qfof), f"{FIXDIR}/multi.fa", str(tmp_path)], cwd=tmp_path,
+        env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "OK" in res.stdout
-    assert _gz(out) == _gz(f"{FIXDIR}/matrix_s16_tiny.gz")
+    assert _gz(tmp_path / "m.gz") == _gz(f"{FIXDIR}/matrix_s16_tiny.gz")
+    assert _gz(tmp_path / "l.gz") == _gz(f"{FIXDIR}/lines_fa_s5.gz")
+    assert _gz(tmp_path / "d.bin") == _gz(f"{FIXDIR}/dump_tiny_s8w10h3.bin")
     jout = tmp_path / "j.gz"
     assert jcli.main(["-I", f"{FIXDIR}/fof_tiny.txt", "-Q", str(qfof),
                       "-S", "12", "-K", "21", "-J", "0.05",
                       "-O", str(jout)]) == 0
-    assert _gz(qout) == _gz(jout)
+    assert _gz(tmp_path / "q.gz") == _gz(jout)
+    assert jcli.main(["-I", f"{FIXDIR}/fof_tiny.txt", "-Q", str(qfof),
+                      "-S", "8", "-W", "10", "-H", "3", "-O", str(jout)]) == 0
+    assert _gz(tmp_path / "lq.gz") == _gz(jout)
 
 
 def _imported_modules(path):
