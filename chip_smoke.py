@@ -13,18 +13,20 @@ Phases (any failure raises and exits non-zero):
      E. coli-sized record) and 6 x 2^23 (six 4.6 Mbp records, as
      dispatch_sketch_packed_batch batches them), each with the device time
      of its three launches (radix_hist, radix_scan, radix_scatter) from
-     torch.profiler; K2 (bcount) against 4096 index rows of
-     1024 lanes at the -M shape (768 index rows re-encoded as queries, one
-     MATRIX_BLOCK of the self-join, P = 13) and at the -Q shape (96 packed
-     queries, P = 13 and 17) and, off the main path, 96 queries against
-     102,400 rows (the 4096-row planes repeated 25 times on the card; the
-     counts must also equal the 4096-row counts tiled), and, measured
-     beside K3 though S <= 11 does not route to it, at S = 10 (32 lanes)
-     and S = 11 (64 lanes), P = 13, at the -M and -Q shapes and with all
-     4096 rows as queries in one launch; K3 (pcount) at the whole count
-     calls of the main path, (d) 4096 queries against 4096 rows at S = 10
-     (phase 6's -M call) and (e) 96 queries against them (phase 7's -Q
-     call), (f) the whole -M call at S = 11, and with 64 queries (the JAX
+     torch.profiler; K2 (bcount) against 4096 index rows of 1024 lanes
+     at the -M shape (768 index rows re-encoded as queries, one
+     MATRIX_BLOCK of the full sweep, P = 13), at phase 4's symmetric-sweep
+     window (the same queries against 4608 rows of the planes extended by
+     never-matching rows, a view read in place) and at the -Q shape (96
+     packed queries, P = 13 and 17) and, off the main path, 96 queries
+     against 102,400 rows (the 4096-row planes repeated 25 times on the
+     card; the counts must also equal the 4096-row counts tiled), and,
+     measured beside K3 though S <= 11 does not route to it, at S = 10
+     (32 lanes) and S = 11 (64 lanes), P = 13, at the -M and -Q shapes and
+     with all 4096 rows as queries in one launch; K3 (pcount) at the whole
+     count calls of the main path, (d) 4096 queries against 4096 rows at
+     S = 10 (phase 6's -M call) and (e) 96 queries against them (phase 7's
+     -Q call), (f) the whole -M call at S = 11, and with 64 queries (the JAX
      package's block) against (a) 4096 rows at S = 10, (b) 102,400 rows at
      S = 10 (a 100k-genome index, 210 MB of int16) and (c) 4096 rows at
      S = 11. K2's and K3's library time is F - torch.cdist(p=0) over float
@@ -36,9 +38,10 @@ Phases (any failure raises and exits non-zero):
      the self-join must equal tests/fixtures/matrix_s16_tiny.gz.
   4. the main path at full size: -M over 4096 synthetic 100 kb genomes
      (128 clusters of 32 at 2% point mutation) with the golden sketch
-     configuration (K=31, S=15, W=12, H=4) and -J 0.05. The sketch matrix
-     must equal the host-native sketches, 96 sampled output rows must equal
-     rows formatted from host counts, and K1 and K2 must have launched.
+     configuration (K=31, S=15, W=12, H=4) and -J 0.05, through the
+     symmetric sweep (NIQKI_TPU_MATRIX_SYM=auto). The sketch matrix must
+     equal the host-native sketches, 96 sampled output rows must equal rows
+     formatted from host counts, and K1 and K2 must have launched.
   5. -I/-Q: 96 query genomes (1% mutants of index genomes) against that
      index through the K2 top-k route; the output must equal the
      host-native hits.
@@ -59,12 +62,32 @@ Phases (any failure raises and exits non-zero):
   9. dumps: SketchIndex.dump of phase 8's index, then -L of it with -l of
      the same records: the loaded matrix and names must equal phase 8's
      index and the output phase 8's bytes, through K2.
+ 10. BASELINE config 5: -i/-M of 102,400 genomes of 10 kb (128 clusters of
+     800 at 2% point mutation, numpy seed 7, the JAX package's bench input)
+     as one multi-FASTA, K=31 S=12 W=12 H=4, -J 0.05, once through the
+     symmetric sweep (SYM=auto) and once through the full sweep (SYM=off),
+     each with its wall, ingest, planes and sweep times, K2 launches and
+     device ms, peak device memory and the sweep's stats (peak mirror
+     bytes). The two gzip outputs must have one SHA-256; 128 sampled rows
+     (read in one streaming pass) must equal rows formatted from
+     native.count_eq counts of host-native sketches; the symmetric sweep's
+     K2 columns must be the window widths' share of the full sweep's
+     (0.53 +- 0.01) and its peak device memory at most the full sweep's
+     plus the padding rows' planes.
+ 11. adversarial density: 4096 rows at S=12 that all match each other
+     (SketchIndex.from_arrays) with a top-k cap of 128, so every row
+     overflows: the symmetric sweep's output must equal the full sweep's
+     byte for byte, and its peak mirror bytes stay within 10 B for each
+     survivor cell beyond its row's block.
 
 Phase 2 also checks and times K1 at 512 x 2^16, the lines-mode shape of
-phase 8's 40-65 kb contigs. The second line from the end is a JSON object
-with, for each kernel and main-path shape, its launches in the run that
-gives it that shape (phase 4 and 5 at S=15, 6 and 7 at S=10, 8 for K1 at
-2^16) and in phases 8 and 9 (launches_phase8, launches_phase9; K1 by row
+phase 8's 40-65 kb contigs, and K2 at two of phase 10's windows (block 0,
+768 x 102,912 columns, and block 67, 768 x 55,296 from row 51,456), each a
+view of the extended planes that the kernel must read without a copy. The
+second line from the end is a JSON object with, for each kernel and
+main-path shape, its launches in the run that gives it that shape (phase 4
+and 5 at S=15, 6 and 7 at S=10, 8 for K1 at 2^16, 10 for the config-5
+window) and in phases 8 and 9 (launches_phase8, launches_phase9; K1 by row
 length), its error, times, bound and library time; the last line names the
 device. Without a CUDA device, or without the
 port's package beside it, the script fails before printing either. It
@@ -90,6 +113,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FIXDIR = os.path.join(REPO, "tests", "fixtures")
 G, LEN, CLUSTERS, MUT, QMUT, NQ = 4096, 100_000, 128, 0.02, 0.01, 96
 N_MID, N_SHORT = 1000, 8192 - 1000 - 96     # phase 8's -l contigs
+G5, LEN5 = 102_400, 10_000      # phase 10: BASELINE config 5
 S = 15          # sketch size 2^S; K=31, W=12, H=4 are the CLI defaults
 SEED = 7
 T0 = time.time()
@@ -324,27 +348,69 @@ def bcount_stats(qp, xp, qf, xf, err: int, plain_reps: int = 5) -> dict:
                     Qb * Gx * L * (P + 2))}
 
 
-def check_bcount(P: int, matrix_rows: tuple = (),
-                 F: int = 32768) -> list[dict]:
+def sym_widths(rows: int) -> tuple[int, list, int]:
+    """The symmetric sweep's layout of an index of ``rows`` (padded) rows
+    at the defaults (MATRIX_BLOCK 768, QB 8): (blocks N, window widths in
+    blocks, rows of the extended planes)."""
+    from niqki_tpu_torch.ops import bcount
+    B, QB = bcount.MATRIX_BLOCK, 8
+    N = -(-rows // B)
+    widths = [min(N, -(-(N - i) // QB) * QB) for i in range(N)]
+    return N, widths, (N + QB - 1) * B
+
+
+ALLOC_SLACK = 2 << 20   # what torch's caching allocator may add to a block
+
+
+def k2_in_place(qp, win):
+    """K2 of qp against the window view ``win``; the call must allocate its
+    output and nothing else (no copy of the window: the allocator may hand
+    out a block up to ALLOC_SLACK larger than asked, the window's planes
+    are larger still). Returns (counts, the bytes the call allocated)."""
+    import torch
+    from niqki_tpu_torch.ops import bcount
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = bcount._bcount_call(qp, win)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    require(extra < got.numel() * 4 + ALLOC_SLACK,
+            f"K2 copied a window of {tuple(win.shape)}: {extra} bytes")
+    return got, extra
+
+
+def check_bcount(P: int, matrix_rows: tuple = (), F: int = 32768,
+                 window: bool = False) -> list[dict]:
     """K2 against its plain version over 4096 index rows of F / 32 lanes
     (1024 at S=15): at the -Q shape (96 queries packed from fingerprints,
     as match_counts_planes ships them) and, for each B of ``matrix_rows``,
-    with the first B index rows re-encoded as queries: the -M shape at
-    B = MATRIX_BLOCK, as the self-join sweep launches it, and the whole -M
-    count in one launch at B = 4096."""
+    with the first B index rows re-encoded as queries: the full sweep's -M
+    block at B = MATRIX_BLOCK and the whole -M count in one launch at
+    B = 4096. ``window`` adds the symmetric sweep's -M window at G = 4096,
+    as phase 4 launches it: 768 queries against the first 6 x 768 rows of
+    the planes extended by never-matching rows, a view read in place."""
     import torch
     from niqki_tpu_torch.ops import bcount
     g, gd, q, xp, qp = bcount_inputs(P, F)
-    shapes = [("-Q", q, qp)]
+    xf = gd.float()
+    shapes = [("-Q", q, qp, xp, xf)]
     for B in matrix_rows:
         path = "-M" if B == bcount.MATRIX_BLOCK else f"-M {B} rows"
         shapes.append((path, g[:B], bcount._planes_as_queries(
-            xp, 0, B).contiguous()))
-    xf = gd.float()
+            xp, 0, B).contiguous(), xp, xf))
+    if window:
+        B = bcount.MATRIX_BLOCK
+        _, widths, rows = sym_widths(G)
+        xpe = bcount.extend_planes(xp, rows - G)
+        cols = widths[0] * B
+        shapes.append(("-M window", g[:B], bcount._planes_as_queries(
+            xpe, 0, B), xpe[:, :cols], torch.cat(
+                [xf, xf.new_full((cols - G, F), -2.0)])))
     out = []
-    for path, qsrc, qp in shapes:
-        got = bcount._bcount_call(qp, xp)
-        want = bcount._bcount_plain(qp, xp)
+    for path, qsrc, qp, x, xf in shapes:
+        got, extra = k2_in_place(qp, x)
+        want = bcount._bcount_plain(qp, x)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         require(err == 0 and torch.equal(got, want),
@@ -354,7 +420,8 @@ def check_bcount(P: int, matrix_rows: tuple = (),
         qf = torch.from_numpy(np.where(qsrc < 0, -3, qsrc)).cuda().float()
         require(torch.equal(cdist_counts(qf, xf).to(torch.int32), got),
                 f"F - cdist(p=0) differs from K2 at P={P}, {path} shape")
-        out.append({"path": path, **bcount_stats(qp, xp, qf, xf, err)})
+        out.append({"path": path, "call_extra_bytes": extra,
+                    **bcount_stats(qp, x, qf, xf, err)})
     return out
 
 
@@ -388,6 +455,60 @@ def check_bcount_rows(tiles: int = 25) -> dict:
         qf = xf = None
     del gd
     return bcount_stats(qp, xbig, qf, xf, err, plain_reps=3)
+
+
+def check_bcount_window() -> list[dict]:
+    """K2 at the symmetric sweep's config-5 shapes, off the smoke's other
+    paths: 102,400 index rows at S=12 (128 lanes, P=13; random
+    fingerprints, rows 0-767 equal, 1% stored -2 slots) extended to the
+    sweep's 108,288 rows, and block 0's window (768 x 102,912 columns, the
+    widest; it runs 512 columns into the padding) and block 67's (768 x
+    55,296 from row 51,456, across the index's end), each a view of the
+    extended planes read in place. The call must allocate its output and
+    nothing else; the counts must equal the plain version on the same view
+    and F - cdist(p=0) over float copies of the window's fingerprints
+    (padding rows -2, query -3 slots)."""
+    import torch
+    from niqki_tpu_torch.ops import bcount
+    W, F, B = 12, 4096, bcount.MATRIX_BLOCK
+    N, widths, rows = sym_widths(G5)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    g = torch.randint(0, 1 << W, (rows, F), dtype=torch.int16,
+                      device="cuda", generator=gen)
+    g[:B] = g[0]
+    g[torch.rand((rows, F), device="cuda", generator=gen) < 0.01] = -2
+    g[G5:] = -2
+    xpe = bcount.extend_planes(bcount.pack_bitplanes(g[:G5], W=W,
+                                                     query=False),
+                               rows - G5)
+    require(torch.equal(xpe, bcount.pack_bitplanes(g, W=W, query=False)),
+            "extend_planes' padding differs from stored -2 rows")
+    out = []
+    for i in (0, N // 2):
+        lo, cols = i * B, widths[i] * B
+        win = xpe[:, lo:lo + cols]
+        qp = bcount._planes_as_queries(xpe, lo, B)
+        got, extra = k2_in_place(qp, win)
+        want = bcount._bcount_plain(qp, win)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        require(err == 0 and torch.equal(got, want),
+                f"K2 differs from its plain version on window {i}")
+        del want
+        require(int(got.max()) > F // 2,
+                "K2 window check saw no real matches")
+        qs = g[lo:lo + B]
+        qf = torch.where(qs < 0, -3, qs).float()
+        xf = g[lo:lo + cols].float()
+        require(torch.equal(cdist_counts(qf, xf).to(torch.int32), got),
+                f"F - cdist(p=0) differs from K2 on window {i}")
+        del got
+        out.append({"path": f"config-5 window, block {i}",
+                    "window": f"rows [{lo}, {lo + cols}) of {rows}",
+                    "call_extra_bytes": extra,
+                    **bcount_stats(qp, win, qf, xf, err, plain_reps=3)})
+        del qf, xf
+    return out
 
 
 def pcount_inputs(Gx: int, S_: int, Qb: int):
@@ -527,17 +648,21 @@ def write_lines_inputs(d: str, fof: str, seqs, mutants) -> tuple[str, str]:
 
 class Spy:
     """Times and records calls of the port's index methods and engine
-    functions during a CLI run (the CLI builds its index internally), and
-    the row length of every K1 call (``k1_rows``: N -> calls)."""
+    functions during a CLI run (the CLI builds its index internally), the
+    row length of every K1 call (``k1_rows``: N -> calls), every K2 call's
+    (queries, columns) with CUDA events around it (``k2``; ``k2_summary``)
+    and the stats the symmetric sweep returns (``sym_stats``)."""
 
     def __init__(self):
         import torch
         from niqki_tpu_torch import engine, index
-        from niqki_tpu_torch.ops import sketch
+        from niqki_tpu_torch.ops import bcount, sketch
         self.times: dict[str, float] = {}
         self.index = None
         self.sparse_hits = 0
         self.k1_rows: dict[int, int] = {}
+        self.k2: list = []
+        self.sym_stats = None
         cls = index.SketchIndex
         self._orig = [(cls, n, vars(cls)[n]) for n in (
             "sketch_files", "insert_file_lines", "load", "_planes",
@@ -546,6 +671,9 @@ class Spy:
             "query_matrix", "_query_matrix_selfjoin", "query_file_lines")]
         self._orig.append((sketch, "sort_i32_pow2_batch",
                            sketch.sort_i32_pow2_batch))
+        self._orig.append((bcount, "_bcount_call", bcount._bcount_call))
+        self._orig.append((engine, "_query_matrix_selfjoin_sym",
+                           engine._query_matrix_selfjoin_sym))
         orig = {n: f for _, n, f in self._orig}
         spy = self
 
@@ -595,6 +723,21 @@ class Spy:
             spy.k1_rows[n] = spy.k1_rows.get(n, 0) + 1
             return orig["sort_i32_pow2_batch"](x)
 
+        def k2(qp, xp):
+            if qp.device.type != "cuda":
+                return orig["_bcount_call"](qp, xp)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = orig["_bcount_call"](qp, xp)
+            b.record()
+            spy.k2.append((int(qp.shape[1]), int(xp.shape[1]), a, b))
+            return out
+
+        def sym(index_, out_):
+            spy.sym_stats = orig["_query_matrix_selfjoin_sym"](index_, out_)
+            return spy.sym_stats
+
         cls.sketch_files = sketch_files
         cls.insert_file_lines = insert_file_lines
         cls.load = classmethod(load)
@@ -606,12 +749,31 @@ class Spy:
             "sweep_s", orig["_query_matrix_selfjoin"])
         engine.query_file_lines = timed("lines_s", orig["query_file_lines"])
         sketch.sort_i32_pow2_batch = sort
+        bcount._bcount_call = k2
+        engine._query_matrix_selfjoin_sym = sym
 
     def reset(self):
         self.times.clear()
         self.index = None
         self.sparse_hits = 0
         self.k1_rows.clear()
+        self.k2.clear()
+        self.sym_stats = None
+
+    def k2_summary(self) -> dict:
+        """K2 calls since the last reset: launches, device ms summed over
+        them (CUDA events around each call, so a gap between the first
+        event and the launch counts too), and the (query, column) cells
+        counted and the columns of the calls with MATRIX_BLOCK queries (the
+        sweep's blocks, the 96-row re-fetches left out)."""
+        import torch
+        from niqki_tpu_torch.ops import bcount
+        torch.cuda.synchronize()
+        return {"launches": len(self.k2),
+                "device_ms": sum(a.elapsed_time(b) for *_, a, b in self.k2),
+                "cells": sum(q * c for q, c, *_ in self.k2),
+                "block_columns": sum(c for q, c, *_ in self.k2
+                                     if q == bcount.MATRIX_BLOCK)}
 
     def close(self):
         for owner, name, fn in self._orig:
@@ -820,6 +982,323 @@ def phase_dump(d: str, idx, qfa: str, want: bytes, spy: "Spy"):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the symmetric sweep
+
+def write_config5(d: str) -> str:
+    """BASELINE config 5's genomes, as the JAX package's bench makes them
+    (bench_scale._synth_clustered_file(102400, 10_000, 128)): CLUSTERS
+    random ancestors of LEN5 bases (numpy seed 7), each expanded into
+    G5 / CLUSTERS descendants by iid point mutations at MUT (the
+    replacement base uniform, the same base included), written in cluster
+    order as one multi-FASTA with headers c<cluster>_<gid>."""
+    rng = np.random.default_rng(SEED)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    path = os.path.join(d, "config5.fa")
+    gid = 0
+    with open(path, "wb") as f:
+        for c in range(CLUSTERS):
+            anc = rng.choice(alphabet, LEN5)
+            k = G5 // CLUSTERS + (1 if c < G5 % CLUSTERS else 0)
+            muts = rng.random((k, LEN5)) < MUT
+            vals = rng.choice(alphabet, (k, LEN5))
+            seqs = np.where(muts, vals, anc[None, :])
+            for i in range(k):
+                f.write(b">c%d_%d\n%s\n" % (c, gid, seqs[i].tobytes()))
+                gid += 1
+    return path
+
+
+def sha256(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for blk in iter(lambda: f.read(1 << 24), b""):
+            h.update(blk)
+    return h.hexdigest()
+
+
+def gz_lines(path: str, wanted) -> tuple[dict, int]:
+    """The lines of a gzip text file at the 0-based indices in ``wanted``
+    (without their newline) and the number of lines, from one streaming
+    pass: the text is never held whole. The file must end in a newline."""
+    wanted = set(wanted)
+    got, line, carry = {}, 0, b""
+    with gzip.open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            first = chunk.find(b"\n")
+            if first < 0:
+                carry += chunk
+                continue
+            if line in wanted:
+                got[line] = carry + chunk[:first]
+            last = chunk.rfind(b"\n")
+            mid = chunk.count(b"\n", first + 1, last + 1)
+            if any(line < w <= line + mid for w in wanted):
+                for k, text in enumerate(chunk[first + 1:last].split(b"\n"),
+                                         start=line + 1):
+                    if k in wanted:
+                        got[k] = text
+            line += 1 + mid
+            carry = chunk[last + 1:]
+    require(carry == b"", f"{path} does not end in a newline")
+    return got, line
+
+
+def first_diff_line(a: str, b: str):
+    """(line index, its first 200 bytes in a, in b) of the first line where
+    two gzip text files differ, streamed; None where they are equal."""
+    line = 0
+    with gzip.open(a, "rb") as fa, gzip.open(b, "rb") as fb:
+        while True:
+            ca, cb = fa.read(1 << 24), fb.read(1 << 24)
+            if ca != cb:
+                n = min(len(ca), len(cb))
+                neq = np.frombuffer(ca[:n], np.uint8) != \
+                    np.frombuffer(cb[:n], np.uint8)
+                i = int(np.argmax(neq)) if neq.any() else n
+                s = ca.rfind(b"\n", 0, i) + 1
+                return (line + ca.count(b"\n", 0, i), ca[s:s + 200],
+                        cb[s:s + 200])
+            if not ca:
+                return None
+            line += ca.count(b"\n")
+
+
+def run_config5(d: str, fa: str, spy: "Spy", sym: str) -> tuple[dict, object]:
+    """One -i/-M run of config 5 under NIQKI_TPU_MATRIX_SYM=sym, with what
+    phase 10 prints of it; returns (its numbers, its index)."""
+    import gc
+    import torch
+    from niqki_tpu_torch import cli, kernels
+    from niqki_tpu_torch.ops import bcount
+    out = os.path.join(d, f"config5_{sym}.gz")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["NIQKI_TPU_MATRIX_SYM"] = sym
+    os.environ["NIQKI_TPU_MATRIX_STATS"] = "1"
+    spy.reset()
+    kernels.reset_launches()
+    t = time.time()
+    try:
+        rc = cli.main(["-i", fa, "-M", fa, "-S", "12", "-J", "0.05",
+                       "-O", out])
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        del os.environ["NIQKI_TPU_MATRIX_SYM"]
+        del os.environ["NIQKI_TPU_MATRIX_STATS"]
+    wall = time.time() - t
+    require(rc == 0, f"config 5 -M rc under SYM={sym}")
+    idx = spy.index
+    require(idx is not None and idx.G == G5,
+            f"config 5 did not index {G5} genomes")
+    k2 = spy.k2_summary()
+    require(k2["launches"] == launches["bcount"] > 0,
+            f"config 5 under SYM={sym} skipped K2: {launches}")
+    res = {"sym": sym, "out": out, "wall_s": wall,
+           "times": {k: round(v, 3) for k, v in spy.times.items()},
+           "launches": launches, "k2": k2,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "base_device_gib": base / 2**30,
+           "stats": spy.sym_stats, "sha256": sha256(out),
+           "gz_bytes": os.path.getsize(out)}
+    st = spy.sym_stats
+    log(f"phase 10: SYM={sym} wall {wall:.2f} s; {res['times']} (ingest_s: "
+        f"-i, planes_s: the bit-planes, sweep_s: the sweep); launches "
+        f"{launches}; K2 {k2['launches']} launches, {k2['device_ms']:.1f} "
+        f"device ms, {k2['cells']} cells, {k2['block_columns']} columns in "
+        f"{bcount.MATRIX_BLOCK}-row blocks; peak device memory "
+        f"{res['peak_device_gib']:.3f} GiB (at start "
+        f"{res['base_device_gib']:.3f}); sweep stats {st}; peak mirror "
+        f"bytes {st['peak_mirror_bytes'] if st else 'n/a (full sweep)'}; "
+        f"output {res['gz_bytes']} bytes of gzip, sha256 {res['sha256']}")
+    return res, idx
+
+
+def sample_rows(N: int, B: int, n: int = 128) -> list[int]:
+    """n rows of a G5-row matrix swept in N blocks of B: the first and last
+    block's first rows, last rows and block boundaries, the rest random."""
+    rows = {0, 1, B - 1, G5 - 1, G5 - 2, (N - 1) * B, (N - 1) * B + 1}
+    for blk in (1, 2, N // 2, N // 2 + 1, N - 1):
+        rows |= {blk * B - 1, blk * B}
+    rng = np.random.default_rng(SEED + 10)
+    while len(rows) < n:
+        rows.add(int(rng.integers(G5)))
+    return sorted(rows)
+
+
+def phase_config5(d: str, spy: "Spy") -> dict:
+    """Phase 10: BASELINE config 5 (G5 genomes of LEN5 bases, K=31 S=12
+    W=12 H=4, -J 0.05) through -i/-M, once under NIQKI_TPU_MATRIX_SYM=auto
+    (the symmetric sweep) and once under off (the full sweep). The two
+    outputs must have one SHA-256; 128 sampled rows of the symmetric one
+    must equal rows formatted from native.count_eq counts of host-native
+    sketches; the symmetric sweep's K2 cells must be the widths' share of
+    the full sweep's, and its peak device memory at most the full sweep's
+    plus the padding rows' planes."""
+    from niqki_tpu_torch import SketchIndex, SketchParams, native
+    from niqki_tpu_torch.ops import bcount
+    t = time.time()
+    fa = write_config5(d)
+    log(f"phase 10: wrote {G5} genomes of {LEN5} bp ({CLUSTERS} clusters) "
+        f"as one multi-FASTA in {time.time() - t:.1f} s")
+    sym, idx = run_config5(d, fa, spy, "auto")
+    require(sym["stats"] is not None, "SYM=auto did not take the "
+            "symmetric sweep")
+    idx._device_planes = None          # the card holds one run at a time
+    full, _ = run_config5(d, fa, spy, "off")
+    require(full["stats"] is None, "SYM=off took the symmetric sweep")
+    if sym["sha256"] != full["sha256"]:
+        diff = first_diff_line(sym["out"], full["out"])
+        raise RuntimeError(f"check failed: config 5 outputs differ; first "
+                           f"differing line (index, sym, full): {diff}")
+    N, widths, rows_ext = sym_widths(G5)
+    B = bcount.MATRIX_BLOCK
+    want_ratio = sum(widths) * B / (N * G5)
+    ratio = sym["k2"]["block_columns"] / full["k2"]["block_columns"]
+    cell_ratio = sym["k2"]["cells"] / full["k2"]["cells"]
+    require(abs(ratio - 0.53) <= 0.01 and abs(ratio - want_ratio) < 1e-12,
+            f"symmetric K2 columns are {ratio:.4f} of the full sweep's, the "
+            f"widths give {want_ratio:.4f}")
+    require(sym["stats"]["window_cols"] == sum(widths) * B
+            and sym["stats"]["N"] == N, f"sweep stats {sym['stats']}")
+    pad = 13 * (rows_ext - G5) * 128 * 4
+    require(sym["peak_device_gib"] * 2**30
+            <= full["peak_device_gib"] * 2**30 + pad,
+            "the symmetric sweep's peak device memory passes the full "
+            "sweep's plus the padding planes")
+    t = time.time()
+    p = SketchParams(lF=12, min_fract=0.05)
+    os.environ["NIQKI_TPU_SKETCH"] = "host"
+    try:
+        hidx = SketchIndex(p, device="cpu")
+        hidx.insert_file_lines(fa)
+    finally:
+        del os.environ["NIQKI_TPU_SKETCH"]
+    hmat = hidx.matrix()
+    require(hidx.names == idx.names and np.array_equal(idx.matrix(), hmat),
+            "config 5 sketches differ from host-native sketches")
+    del idx
+    rows = sample_rows(N, B)
+    counts = native.count_eq(hmat[rows], hidx._stored(), p.fingerprint_range)
+    fmt = native.MatrixFormatter(hidx.names, p.F, p.min_score)
+    ref_s = time.time() - t
+    t = time.time()
+    got, n_lines = gz_lines(sym["out"], [1 + r for r in rows])
+    read_s = time.time() - t
+    require(n_lines == G5 + 1, f"config 5 output has {n_lines} lines")
+    cells = 0
+    for r, c in zip(rows, counts):
+        want = fmt.format_dense((c & 0xFFFF).astype(np.uint16)[None], r)
+        require(got[1 + r] + b"\n" == want,
+                f"config 5 row {r} differs from host counts")
+        cells += int((c >= p.min_score).sum())
+    require(cells > 10 * len(rows), "config 5's sampled rows hold no "
+            "similarity beyond themselves")
+    log(f"phase 10: the two sweeps' gzip outputs have one SHA-256; sketches "
+        f"== host-native; {len(rows)} sampled rows == host counts ({cells} "
+        f"cells >= J; reference {ref_s:.1f} s, streaming read {read_s:.1f} "
+        f"s); K2 columns symmetric / full = {ratio:.4f} (widths "
+        f"{want_ratio:.4f}; cells {cell_ratio:.4f}); peak device memory "
+        f"{sym['peak_device_gib']:.3f} vs {full['peak_device_gib']:.3f} GiB "
+        f"(+ padding planes "
+        f"{pad / 2**20:.1f} MiB allowed)")
+    for res in (sym, full):
+        os.remove(res["out"])
+    os.remove(fa)
+    return {"sym": sym, "full": full, "ratio": ratio,
+            "cell_ratio": cell_ratio, "want_ratio": want_ratio}
+
+
+def phase_dense_overflow(d: str, spy: "Spy") -> dict:
+    """Phase 11: adversarial density. G rows at S=12 (SketchIndex.from_arrays
+    on the card) that all share 40% of their slots with one ancestor, so
+    every pair survives -J 0.05, and NIQKI_TPU_MATRIX_CAP=128 below every
+    row's survivors in its window: every row overflows, is re-counted dense
+    and mirrors all its survivors beyond its block. The symmetric sweep's
+    output must equal the full sweep's byte for byte and 32 sampled rows
+    the plain K2 counts; its mirror entries must be the survivor cells at
+    or beyond each row's block end (from those counts) and its peak mirror
+    bytes at most 10 B an entry of them."""
+    import torch
+    from niqki_tpu_torch import SketchIndex, SketchParams, engine, kernels
+    from niqki_tpu_torch import native
+    from niqki_tpu_torch.io.writers import GzTextWriter
+    from niqki_tpu_torch.ops import bcount
+    p = SketchParams(lF=12, min_fract=0.05)
+    rng = np.random.default_rng(SEED + 11)
+    mat = rng.integers(0, p.fingerprint_range, (G, p.F)).astype(np.int32)
+    share = rng.random((G, p.F)) < 0.4
+    anc = rng.integers(0, p.fingerprint_range, p.F).astype(np.int32)
+    mat[share] = np.broadcast_to(anc, mat.shape)[share]
+    names = [f"d{i}" for i in range(G)]
+    res = {}
+    os.environ["NIQKI_TPU_MATRIX_CAP"] = "128"
+    try:
+        for sym in ("on", "off"):
+            os.environ["NIQKI_TPU_MATRIX_SYM"] = sym
+            idx = SketchIndex.from_arrays(p, names, mat)
+            out = os.path.join(d, f"dense_{sym}.gz")
+            spy.reset()
+            kernels.reset_launches()
+            t = time.time()
+            with GzTextWriter(out) as w:
+                engine.query_matrix(idx, w)
+            res[sym] = {"wall_s": time.time() - t,
+                        "launches": dict(kernels.LAUNCHES),
+                        "k2": spy.k2_summary(), "stats": spy.sym_stats,
+                        "out": out}
+            require(res[sym]["launches"]["bcount"] > 0,
+                    f"phase 11 under SYM={sym} skipped K2")
+    finally:
+        del os.environ["NIQKI_TPU_MATRIX_CAP"]
+        del os.environ["NIQKI_TPU_MATRIX_SYM"]
+    text = gz_bytes(res["on"]["out"])
+    require(text == gz_bytes(res["off"]["out"]),
+            "phase 11: the symmetric sweep's output differs from the full "
+            "sweep's")
+    xp = bcount.build_index_planes(idx._stored(), p.W, "cuda",
+                                   sanitized=True)
+    c = (bcount._bcount_plain(bcount._planes_as_queries(xp, 0, G), xp)
+         & 0xFFFF).cpu().numpy()
+    del xp
+    B = bcount.MATRIX_BLOCK
+    surv = c >= p.min_score
+    require(surv.all(), "phase 11: not every pair survives")
+    rows = np.arange(G)[:, None]
+    beyond = int((surv & (np.arange(G)[None, :] >= (rows // B + 1) * B))
+                 .sum())
+    st = res["on"]["stats"]
+    require(st is not None and st["mirror_entries"] == beyond,
+            f"phase 11: {st and st['mirror_entries']} mirror entries, "
+            f"{beyond} survivor cells beyond their block")
+    require(st["refetch"] == sum(-(-min(B, G - lo) // 96)
+                                 for lo in range(0, G, B)),
+            f"phase 11: not every row was re-counted dense: {st}")
+    require(0 < st["peak_mirror_bytes"] <= 10 * beyond,
+            f"phase 11: peak mirror bytes {st['peak_mirror_bytes']} pass "
+            f"10 x {beyond}")
+    lines = text.split(b"\n")
+    fmt = native.MatrixFormatter(names, p.F, p.min_score)
+    for r in np.random.default_rng(SEED + 12).choice(G, 32, replace=False):
+        want = fmt.format_dense(c[r:r + 1, :G].astype(np.uint16), int(r))
+        require(lines[1 + r] + b"\n" == want,
+                f"phase 11 row {r} differs from the plain K2 counts")
+    log(f"phase 11: G={G}, every pair survives, cap 128: symmetric output "
+        f"== full sweep's ({len(text)} bytes) and 32 sampled rows == plain "
+        f"counts; SYM=on {res['on']['wall_s']:.2f} s, K2 "
+        f"{res['on']['k2']['launches']} launches "
+        f"{res['on']['k2']['device_ms']:.1f} device ms; off "
+        f"{res['off']['wall_s']:.2f} s, K2 {res['off']['k2']['launches']} "
+        f"launches {res['off']['k2']['device_ms']:.1f} device ms; peak mirror "
+        f"bytes {st['peak_mirror_bytes']} <= bound {10 * beyond} "
+        f"(10 B x {beyond} survivor cells beyond their block); stats {st}")
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, stats, later=(0, 0),
                  **extra):
     """One row of the kernels line; ``later`` holds the row's launches in
@@ -862,12 +1341,17 @@ def main() -> int:
            (6, 4_600_000, 1 << 23), (512, 52_000, 1 << 16))}
     for e in k1.values():
         log(f"phase 2: K1 psort {e}")
-    k2 = {e["path"]: e for e in check_bcount(13, matrix_rows=(768,))}
+    k2 = {e["path"]: e for e in check_bcount(13, matrix_rows=(768,),
+                                             window=True)}
     for e in k2.values():
         log(f"phase 2: K2 bcount {e}")
     log(f"phase 2: K2 bcount {check_bcount(17)[0]}")
     k2["rows"] = check_bcount_rows()
     log(f"phase 2: K2 bcount (96 x 102,400 rows) {k2['rows']}")
+    for e in check_bcount_window():
+        k2[e["path"]] = e
+        log(f"phase 2: K2 bcount ({e['path']}) {e}")
+    torch.cuda.empty_cache()
     for S_ in (10, 11):     # beside K3, which serves S <= 11: measured only
         for e in check_bcount(13, matrix_rows=(768, G), F=1 << S_):
             k2[f"{e['path']} S={S_}"] = e
@@ -925,6 +1409,10 @@ def main() -> int:
             l8, rows8, idx8, out8 = phase_lines(d, allfa, qfa, hidx15, spy)
             del hidx15
             l9, rows9 = phase_dump(d, idx8, qfa, out8, spy)
+            del idx8, out8
+            # ---- phases 10 and 11
+            c5 = phase_config5(d, spy)
+            p11 = phase_dense_overflow(d, spy)
         finally:
             spy.close()
 
@@ -936,6 +1424,9 @@ def main() -> int:
                 "whole call in one launch")
     def k1_later(n):
         return rows8.get(n, 0), rows9.get(n, 0)
+    sym10, full10 = c5["sym"]["launches"], c5["full"]["launches"]
+    on11 = p11["on"]["launches"]
+    N5, widths5, _ = sym_widths(G5)
     print(json.dumps({"kernels": [
         kernel_entry("psort sort_i32_pow2_batch (K1, 256 x 2^17)", *k1_src,
                      m15["psort"], k1[256],
@@ -949,9 +1440,14 @@ def main() -> int:
                      k1[1], launches_from=ecoli),
         kernel_entry("psort sort_i32_pow2_batch (K1, 6 x 2^23)", *k1_src, 0,
                      k1[6], launches_from=ecoli),
-        kernel_entry("bcount _bcount_call (K2, -M shape)", *k2_src,
-                     m15["bcount"], k2["-M"],
-                     launches_from="phase 4, -M -S 15"),
+        kernel_entry("bcount _bcount_call (K2, -M window at G = 4096: "
+                     "768 x 4608 of the extended planes)", *k2_src,
+                     m15["bcount"], k2["-M window"],
+                     launches_from="phase 4, -M -S 15: the symmetric "
+                     "sweep's 6 windows of 6 blocks"),
+        kernel_entry("bcount _bcount_call (K2, -M shape)", *k2_src, 0,
+                     k2["-M"], launches_from="not on the smoke's main path "
+                     "at G = 4096: the full sweep's block (SYM=off)"),
         kernel_entry("bcount _bcount_call (K2, -Q shape)", *k2_src,
                      q15["bcount"], k2["-Q"],
                      later=(l8["bcount"], l9["bcount"]),
@@ -960,6 +1456,24 @@ def main() -> int:
         kernel_entry("bcount _bcount_call (K2, 96 x 102,400 rows)", *k2_src,
                      0, k2["rows"],
                      launches_from="not on the main path (phase 2 only)"),
+        kernel_entry("bcount _bcount_call (K2, config-5 window, block 0: "
+                     f"768 x {widths5[0] * 768} x 128 lanes, P=13)", *k2_src,
+                     sym10["bcount"], k2["config-5 window, block 0"],
+                     launches_phase10_full=full10["bcount"],
+                     launches_phase11=on11["bcount"],
+                     k2_device_ms_phase10=c5["sym"]["k2"]["device_ms"],
+                     k2_device_ms_phase10_full=c5["full"]["k2"]["device_ms"],
+                     launches_from="phase 10, -i/-M -S 12 at G = 102,400 "
+                     f"(BASELINE config 5), symmetric sweep: {N5} windows "
+                     f"of {widths5[-1] * 768} to {widths5[0] * 768} "
+                     "columns (launches_phase10_full: the full sweep's; "
+                     "launches_phase11: phase 11's symmetric sweep)"),
+        kernel_entry("bcount _bcount_call (K2, config-5 window, block "
+                     f"{N5 // 2}: 768 x {widths5[N5 // 2] * 768} x 128 "
+                     "lanes, P=13)", *k2_src, 0,
+                     k2[f"config-5 window, block {N5 // 2}"],
+                     launches_from="one of phase 10's window widths: its "
+                     "launches are counted in the row above"),
         *[kernel_entry(f"bcount _bcount_call (K2, {path} shape at S={S_}, "
                        f"{k2[f'{path} S={S_}']['shape']})", *k2_src, 0,
                        k2[f"{path} S={S_}"],

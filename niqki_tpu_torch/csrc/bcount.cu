@@ -76,13 +76,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // raw[p][r][C] <- lanes [l0, l0 + C) of row r of plane p: rows [0, 96) are
-// the queries q0.., rows [96, 224) the index rows g0..
+// the queries q0.., rows [96, 224) the index rows g0.. (plane p of X starts
+// pitch rows after plane p - 1, so X may be a row window of larger planes)
 template <int C>
 __device__ __forceinline__ void stage(uint32_t* raw,
                                       const uint32_t* __restrict__ qp,
                                       const uint32_t* __restrict__ xp, int P,
-                                      int Qb, int64_t G, int64_t L, int q0,
-                                      int64_t g0, int64_t l0) {
+                                      int Qb, int64_t G, int64_t pitch,
+                                      int64_t L, int q0, int64_t g0,
+                                      int64_t l0) {
   for (int it = threadIdx.x; it < P * kRows; it += kThreads) {
     const int p = it / kRows, r = it % kRows;
     const uint32_t* src;
@@ -93,7 +95,7 @@ __device__ __forceinline__ void stage(uint32_t* raw,
     } else {
       const int64_t g = g0 + (r - kTileQ);
       valid = g < G;
-      src = xp + (int64_t(p) * G + (valid ? g : 0)) * L + l0;
+      src = xp + (int64_t(p) * pitch + (valid ? g : 0)) * L + l0;
     }
     cp_async(raw + it * C, src, 4 * C, valid);
   }
@@ -140,8 +142,8 @@ template <int C>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 bcount_kernel(const uint32_t* __restrict__ qp,
               const uint32_t* __restrict__ xp, int32_t* __restrict__ out,
-              int P, int Qb, int64_t G, int64_t L, int n_qtiles,
-              int64_t lanes_per_split) {
+              int P, int Qb, int64_t G, int64_t pitch, int64_t L,
+              int n_qtiles, int64_t lanes_per_split) {
   extern __shared__ uint4 smem_words[];
   uint32_t* raw = reinterpret_cast<uint32_t*>(smem_words);   // [P][kRows][C]
   uint32_t* t = raw + P * kRows * C;                         // [P][C][kRows]
@@ -154,12 +156,13 @@ bcount_kernel(const uint32_t* __restrict__ qp,
       lbeg + lanes_per_split < L ? lbeg + lanes_per_split : L;
   const int64_t nchunks = (lend - lbeg) / C;
 
-  stage<C>(raw, qp, xp, P, Qb, G, L, q0, g0, lbeg);
+  stage<C>(raw, qp, xp, P, Qb, G, pitch, L, q0, g0, lbeg);
   cp_async_wait_all();
   __syncthreads();
   transpose<C>(t, raw, P);
   __syncthreads();
-  if (nchunks > 1) stage<C>(raw, qp, xp, P, Qb, G, L, q0, g0, lbeg + C);
+  if (nchunks > 1)
+    stage<C>(raw, qp, xp, P, Qb, G, pitch, L, q0, g0, lbeg + C);
 
   int32_t acc[8][8] = {};
   for (int64_t k = 0; k < nchunks; ++k) {
@@ -192,7 +195,8 @@ bcount_kernel(const uint32_t* __restrict__ qp,
       transpose<C>(t, raw, P);
       __syncthreads();          // raw is free; t holds chunk k+1
       if (k + 2 < nchunks)
-        stage<C>(raw, qp, xp, P, Qb, G, L, q0, g0, lbeg + (k + 2) * C);
+        stage<C>(raw, qp, xp, P, Qb, G, pitch, L, q0, g0,
+                 lbeg + (k + 2) * C);
     }
   }
 
@@ -225,8 +229,8 @@ bcount_kernel(const uint32_t* __restrict__ qp,
 
 template <int C>
 int launch(const void* qp, const void* xp, void* out, int P, int Qb,
-           int64_t G, int64_t L, int64_t lanes_per_split, int split,
-           cudaStream_t st) {
+           int64_t G, int64_t pitch, int64_t L, int64_t lanes_per_split,
+           int split, cudaStream_t st) {
   const size_t smem = sizeof(uint32_t) * 2 * (size_t)P * kRows * C;
   cudaError_t err = cudaFuncSetAttribute(
       bcount_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -237,28 +241,34 @@ int launch(const void* qp, const void* xp, void* out, int P, int Qb,
   const dim3 grid((unsigned)(n_qtiles * n_gtiles), (unsigned)split);
   bcount_kernel<C><<<grid, kThreads, smem, st>>>(
       static_cast<const uint32_t*>(qp), static_cast<const uint32_t*>(xp),
-      static_cast<int32_t*>(out), P, Qb, G, L, n_qtiles, lanes_per_split);
+      static_cast<int32_t*>(out), P, Qb, G, pitch, L, n_qtiles,
+      lanes_per_split);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qp: (P, Qb, L) uint32, xp: (P, G, L) uint32, out: (Qb, G) int32, all
+// qp: (P, Qb, L) uint32, xp: (P, G, L) uint32 with planes pitch >= G rows
+// apart (pitch == G when xp is whole planes; a row window [lo, lo + G) of
+// (P, pitch, L) planes passes its first row), out: (Qb, G) int32, all
 // row-major and 16-byte aligned; L % 8 == 0. chunk (4 or 2 lanes),
 // lanes_per_split (a multiple of 8) and split come from the wrapper's plan;
 // with split > 1 the output must hold zeros. Returns cudaGetLastError().
 extern "C" int niqki_bcount(const void* qp, const void* xp, void* out, int P,
-                            int Qb, int64_t G, int64_t L, int chunk,
-                            int64_t lanes_per_split, int split,
+                            int Qb, int64_t G, int64_t pitch, int64_t L,
+                            int chunk, int64_t lanes_per_split, int split,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (L % 8 || lanes_per_split % 8 || lanes_per_split <= 0 || split < 1 ||
-      (split - 1) * lanes_per_split >= L || split * lanes_per_split < L)
+  if (pitch < G || L % 8 || lanes_per_split % 8 || lanes_per_split <= 0 ||
+      split < 1 || (split - 1) * lanes_per_split >= L ||
+      split * lanes_per_split < L)
     return cudaErrorInvalidValue;
   if (chunk == 4)
-    return launch<4>(qp, xp, out, P, Qb, G, L, lanes_per_split, split, st);
+    return launch<4>(qp, xp, out, P, Qb, G, pitch, L, lanes_per_split,
+                     split, st);
   if (chunk == 2)
-    return launch<2>(qp, xp, out, P, Qb, G, L, lanes_per_split, split, st);
+    return launch<2>(qp, xp, out, P, Qb, G, pitch, L, lanes_per_split,
+                     split, st);
   return cudaErrorInvalidValue;
 }
 

@@ -119,7 +119,7 @@ def library():
             lib.niqki_psort_i32.argtypes = [vp, vp, vp, vp, i64, i32, vp]
             lib.niqki_bcount.restype = i32
             lib.niqki_bcount.argtypes = [vp, vp, vp, i32, i32, i64, i64,
-                                         i32, i64, i32, vp]
+                                         i64, i32, i64, i32, vp]
             lib.niqki_pcount.restype = i32
             lib.niqki_pcount.argtypes = [vp, vp, vp, i32, i64, i64, i32,
                                          i64, i32, vp]

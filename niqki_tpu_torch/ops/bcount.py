@@ -158,9 +158,22 @@ def _plan(P: int, Qb: int, G: int, L: int, sms: int = 132) -> dict:
             "tiles": tiles, "blocks": tiles * split}
 
 
+def _plane_pitch(xp: torch.Tensor) -> int | None:
+    """Rows from one plane of xp to the next, when xp is whole (P, G, L)
+    planes or a row window of larger planes (rows and lanes dense, planes
+    ``pitch`` rows apart); None for any other layout."""
+    _, G, L = xp.shape
+    if xp.stride(2) != 1 or xp.stride(1) != L or xp.stride(0) % L:
+        return None
+    pitch = xp.stride(0) // L
+    return pitch if pitch >= G else None
+
+
 def _bcount_call(qp: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
     """counts (Qb, G) int32 of query planes qp (P, Qb, L) against index
-    planes xp (P, G, L), both int32 bit patterns on one device."""
+    planes xp (P, G, L), both int32 bit patterns on one device. xp may be a
+    row window ``planes[:, lo:lo + G]`` of larger planes: the kernel reads
+    it in place, planes a pitch apart; no layout is copied."""
     P, Qb, L = qp.shape
     if xp.dim() != 3 or xp.shape[0] != P or xp.shape[2] != L:
         raise ValueError(f"plane shapes differ: {tuple(qp.shape)} vs "
@@ -172,8 +185,10 @@ def _bcount_call(qp: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
     if qp.device.type == "cpu":
         return _bcount_plain(qp, xp)
     kernels.require_cuda(qp, "_bcount_call")
-    if not (qp.is_contiguous() and xp.is_contiguous()):
-        raise ValueError("_bcount_call needs contiguous planes")
+    pitch = _plane_pitch(xp)
+    if not qp.is_contiguous() or pitch is None:
+        raise ValueError("_bcount_call needs contiguous query planes and "
+                         "index planes whose rows and lanes are dense")
     if L % 8 or qp.data_ptr() % 16 or xp.data_ptr() % 16:
         raise ValueError("_bcount_call needs L % 8 == 0 and 16-byte "
                          "aligned planes")
@@ -189,8 +204,9 @@ def _bcount_call(qp: torch.Tensor, xp: torch.Tensor) -> torch.Tensor:
     lib = kernels.library()
     with torch.cuda.device(qp.device):
         err = lib.niqki_bcount(qp.data_ptr(), xp.data_ptr(), out.data_ptr(),
-                               P, Qb, G, L, plan["chunk"], plan["lanes"],
-                               plan["split"], kernels.stream_handle(qp))
+                               P, Qb, G, pitch, L, plan["chunk"],
+                               plan["lanes"], plan["split"],
+                               kernels.stream_handle(qp))
     kernels.check(err, "bcount")
     kernels.LAUNCHES["bcount"] += 1
     return out
@@ -290,3 +306,44 @@ def _self_join_topk(xp: torch.Tensor, lo: int, min_score: int, *, B: int,
 def _self_join_dense(xp: torch.Tensor, lo: int, *, B: int) -> torch.Tensor:
     """(B, Gp) int32 wrapped counts (min_score == 0: every cell prints)."""
     return _self_join_counts(xp, lo, B)
+
+
+# ---------------------------------------------------------------------------
+# the symmetric sweep: upper-triangle windows
+
+def extend_planes(xp: torch.Tensor, extra: int) -> torch.Tensor:
+    """xp (P, Gp, L) followed by ``extra`` never-matching rows (stored
+    invalid: all-0 value planes, all-1 sentinel), in one new tensor: the
+    symmetric sweep's quantized windows read past Gp, and a padding row
+    counts 0 against every query (masked by min_score >= 1 on that path)."""
+    if extra <= 0:
+        return xp
+    P, Gp, L = xp.shape
+    out = torch.empty((P, Gp + extra, L), dtype=xp.dtype, device=xp.device)
+    out[:, :Gp] = xp
+    out[:P - 1, Gp:] = 0
+    out[P - 1, Gp:] = -1
+    return out
+
+
+def _self_join_window_topk(xpe: torch.Tensor, lo: int, min_score: int, *,
+                           B: int, w: int, cap: int):
+    """One step of the symmetric sweep: counts of rows [lo, lo+B) of the
+    extended planes xpe against the upper-triangle column window
+    [lo, lo+w*B) only, read in place by K2, wrapped to uint16; then the top
+    min(cap, w*B) per row: (vals, gids) int32, count-descending, gids
+    global, sub-min_score entries masked to (0, 0). The strictly-lower
+    tiles are the host's mirrors (equality counts are symmetric)."""
+    qp = _planes_as_queries(xpe, lo, B)
+    c = _bcount_call(qp, xpe[:, lo:lo + w * B]) & 0xFFFF
+    vals, pos = torch.topk(c, min(cap, w * B), dim=1, largest=True,
+                           sorted=True)
+    return _mask_topk(vals, (pos + lo).to(torch.int32), min_score)
+
+
+def _window_dense(xpe: torch.Tensor, lo: int, Gp: int) -> torch.Tensor:
+    """(n, Gp) int32 wrapped counts of the extended planes' rows
+    [lo, lo+BLOCK_Q) (n of them before the end of xpe) against the index
+    columns [0, Gp): the symmetric sweep's re-fetch of overflowed rows."""
+    qp = _planes_as_queries(xpe, lo, BLOCK_Q)
+    return _bcount_call(qp, xpe[:, :Gp]) & 0xFFFF

@@ -117,6 +117,89 @@ def test_bcount_self_join_shapes(card, lo, B):
     assert torch.equal(got[rows, lo + rows], got.max(dim=1).values)
 
 
+@pytest.mark.parametrize("P", [13, 17])
+@pytest.mark.parametrize("lo,C", [(640, 2000), (3072, 1024), (384, 128),
+                                  (4000, 96)])
+def test_bcount_window_views(card, P, lo, C):
+    """K2 over a row window xp[:, lo:lo+C] of resident planes, as the
+    symmetric sweep launches it: from mid-planes, ending at Gp, a single
+    128-row tile, a ragged end. The kernel reads the view in place (the
+    planes' pitch apart): the call allocates its output and nothing else
+    (the caching allocator may hand out up to 2 MiB more than asked; a
+    copy of the window would add more than that), and the counts equal
+    the plain version on the same view and the whole planes' counts in
+    those columns."""
+    slack = 2 << 20
+    qp, xp = _bcount_planes(card, P, 96, 4096, 1024)
+    win = xp[:, lo:lo + C]
+    assert not win.is_contiguous() and bcount._plane_pitch(win) == 4096
+    assert P * C * 1024 * 4 > slack
+    torch.cuda.synchronize(card)
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    got = bcount._bcount_call(qp, win)
+    torch.cuda.synchronize(card)
+    assert torch.cuda.max_memory_allocated(card) - base < \
+        got.numel() * 4 + slack
+    assert torch.equal(got, bcount._bcount_plain(qp, win))
+    assert torch.equal(got, bcount._bcount_call(qp, xp)[:, lo:lo + C])
+    assert int(got.max()) > 0
+
+
+def test_bcount_rejects_strided_rows(card):
+    """A layout whose rows are not dense is refused, never copied."""
+    qp, xp = _bcount_planes(card, 13, 96, 256, 16)
+    with pytest.raises(ValueError, match="dense"):
+        bcount._bcount_call(qp, xp[:, ::2])
+    with pytest.raises(ValueError, match="dense"):
+        bcount._bcount_call(qp[:, :, :8].contiguous(), xp[:, :, :8])
+
+
+def test_sym_sweep_on_card_matches_full(card, tmp_path, monkeypatch):
+    """The whole symmetric -M on the card (G = 2000, B = 128, QB = 2: 16
+    blocks, windows of 16 down to 2 blocks past the index's end) writes the
+    full sweep's bytes, at the default cap and at cap 64 (below the
+    cluster size, so every row is re-counted dense); the symmetric sweep
+    launches K2 over fewer columns."""
+    import gzip
+    from niqki_tpu_torch import SketchIndex, SketchParams, engine
+    from niqki_tpu_torch.io.writers import GzTextWriter
+    p = SketchParams(lF=12, K=21, min_fract=0.05)
+    G, n_clusters = 2000, 20
+    rng = np.random.default_rng(8)
+    anc = rng.integers(0, p.fingerprint_range, (n_clusters, p.F))
+    mat = rng.integers(0, p.fingerprint_range, (G, p.F)).astype(np.int32)
+    share = rng.random((G, p.F)) < 0.4
+    mat[share] = anc[np.arange(G) % n_clusters][share]
+    names = [f"g{i}" for i in range(G)]
+    for k, v in (("NIQKI_TPU_MATRIX", "selfjoin"),
+                 ("NIQKI_TPU_MATRIX_BLOCK", "128"),
+                 ("NIQKI_TPU_MATRIX_QB", "2")):
+        monkeypatch.setenv(k, v)
+    for cap in ("1024", "64"):
+        monkeypatch.setenv("NIQKI_TPU_MATRIX_CAP", cap)
+        out, cols = {}, {}
+        for sym in ("on", "off"):
+            monkeypatch.setenv("NIQKI_TPU_MATRIX_SYM", sym)
+            seen = []
+            orig = bcount._bcount_call
+
+            def spy(qp, xp):
+                seen.append(int(xp.shape[1]))
+                return orig(qp, xp)
+            monkeypatch.setattr(bcount, "_bcount_call", spy)
+            idx = SketchIndex.from_arrays(p, names, mat, device="cuda")
+            path = tmp_path / f"{sym}{cap}.gz"
+            with GzTextWriter(str(path)) as w:
+                engine.query_matrix(idx, w)
+            monkeypatch.setattr(bcount, "_bcount_call", orig)
+            with gzip.open(path, "rb") as f:
+                out[sym] = f.read()
+            cols[sym] = sum(seen)
+        assert out["on"] == out["off"] and b"g1\t" in out["on"]
+        assert 0 < cols["on"] < cols["off"]
+
+
 def test_bcount_split_launches_agree(card):
     """Two launches on one input give one output: the lane-split partial
     counts are added with integer atomics, exact in any order."""

@@ -94,16 +94,6 @@ def test_query_matrix_matches_jax(tmp_path, monkeypatch, case):
     assert _matrix_bytes(jengine, jidx, tmp_path / "d.gz") == want
 
 
-def test_matrix_sym_on_is_refused(tmp_path, monkeypatch):
-    monkeypatch.setenv("NIQKI_TPU_MATRIX", "selfjoin")
-    monkeypatch.setenv("NIQKI_TPU_MATRIX_SYM", "on")
-    p = SketchParams(lF=12, K=21, min_fract=0.05)
-    idx = SketchIndex.from_arrays(p, ["a", "b"], _clustered(p, G=2),
-                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="symmetric"):
-        _matrix_bytes(engine, idx, tmp_path / "m.gz")
-
-
 @pytest.mark.parametrize("minjac", ["0", "0.05"])
 def test_cli_index_query_matches_jax(tmp_path, monkeypatch, minjac):
     """-I fof_tiny -Q <fof>: the same bytes as niqki_tpu's CLI."""
