@@ -79,6 +79,26 @@ Phases (any failure raises and exits non-zero):
      overflows: the symmetric sweep's output must equal the full sweep's
      byte for byte, and its peak mirror bytes stay within 10 B for each
      survivor cell beyond its row's block.
+ 12. checkpoints at G = 4096: the CLI's -I -S 15 --save-sharded --shards 4
+     (v2, gzip rows), then --load-sharded -Q of phase 5's queries, must give
+     phase 5's bytes; phase 4's index saved through the API as v3 (3 raw
+     shards with planes) and loaded must give phase 4's matrix bytes
+     through engine.query_matrix, and each planes file must equal the
+     card's planes over its rows; phase 6's S=10 index saved and loaded
+     must give phase 7's -Q bytes through exactly one K3 launch. Save and
+     load seconds and the bytes on disk are printed.
+ 13. checkpoints at BASELINE config 5: phase 10's index saved with 8
+     shards as v3 (raw rows and planes) and as v2 (gzip rows) and loaded:
+     matrix and names equal, the planes files equal to the card's planes,
+     and K2's counts of 96 of its rows equal on the reloaded index and the
+     original. The native plane pack of the whole matrix is timed beside
+     phase 10's device plane build.
+ 14. --profile: phase 5's -I/-Q at S=15 under torch.profiler must give
+     phase 5's bytes and a trace that parses as JSON and names K1's and
+     K2's kernels; its wall and size are printed beside phase 5's wall.
+ 15. NIQKI_TPU_COUNT=mxu (the one-hot matrix product, torch code: the JAX
+     package has no Pallas kernel for it): 96 queries against 4096 rows at
+     S=12, W=12, counts equal to K2's, both timed.
 
 Phase 2 also checks and times K1 at 512 x 2^16, the lines-mode shape of
 phase 8's 40-65 kb contigs, and K2 at two of phase 10's windows (block 0,
@@ -87,8 +107,9 @@ view of the extended planes that the kernel must read without a copy. The
 second line from the end is a JSON object with, for each kernel and
 main-path shape, its launches in the run that gives it that shape (phase 4
 and 5 at S=15, 6 and 7 at S=10, 8 for K1 at 2^16, 10 for the config-5
-window) and in phases 8 and 9 (launches_phase8, launches_phase9; K1 by row
-length), its error, times, bound and library time; the last line names the
+window) and in phases 8, 9 and 12 to 14 (launches_phase8, ...; K1 by row
+length), its error, times, bound and library time, then phase 13's
+checkpoint numbers, phase 14's and phase 15's; the last line names the
 device. Without a CUDA device, or without the
 port's package beside it, the script fails before printing either. It
 imports nothing of JAX and no module of the JAX package: the host-native
@@ -665,8 +686,8 @@ class Spy:
         self.sym_stats = None
         cls = index.SketchIndex
         self._orig = [(cls, n, vars(cls)[n]) for n in (
-            "sketch_files", "insert_file_lines", "load", "_planes",
-            "_packed", "pretty_hits_batch")]
+            "sketch_files", "insert_file_lines", "load", "load_sharded",
+            "save_sharded", "_planes", "_packed", "pretty_hits_batch")]
         self._orig += [(engine, n, vars(engine)[n]) for n in (
             "query_matrix", "_query_matrix_selfjoin", "query_file_lines")]
         self._orig.append((sketch, "sort_i32_pow2_batch",
@@ -699,6 +720,12 @@ class Spy:
         def load(cls_, path, *a, **k):
             spy.index = timed("load_s", orig["load"].__func__)(
                 cls_, path, *a, **k)
+            return spy.index
+
+        def load_sharded(cls_, path, *a, **k):
+            spy.index = timed("load_sharded_s",
+                              orig["load_sharded"].__func__)(cls_, path, *a,
+                                                             **k)
             return spy.index
 
         def device_copy(name, attr):
@@ -741,6 +768,8 @@ class Spy:
         cls.sketch_files = sketch_files
         cls.insert_file_lines = insert_file_lines
         cls.load = classmethod(load)
+        cls.load_sharded = classmethod(load_sharded)
+        cls.save_sharded = timed("save_sharded_s", orig["save_sharded"])
         cls._planes = device_copy("_planes", "_device_planes")
         cls._packed = device_copy("_packed", "_device_packed")
         cls.pretty_hits_batch = pretty
@@ -865,7 +894,8 @@ def phase_matrix(d: str, fof: str, spy: "Spy", S_: int, phase: int):
 
 
 def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy",
-                phase: int) -> dict:
+                phase: int) -> tuple[dict, float]:
+    """-I/-Q of the NQ queries; returns (launches, wall s)."""
     from niqki_tpu_torch import cli, kernels, native
     p = hidx.params
     qout = os.path.join(d, f"q{p.lF}.gz")
@@ -888,7 +918,7 @@ def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy",
     log(f"phase {phase}: -I/-Q -S {p.lF} wall {wall:.2f} s ({NQ} queries, "
         f"{got.count(b':')} hits, {spy.sparse_hits} sparse top-k batches) "
         f"== host-native; launches {launches}")
-    return launches
+    return launches, wall
 
 
 def host_lines_hits(qfa: str, hidx, names) -> bytes:
@@ -1149,7 +1179,7 @@ def phase_config5(d: str, spy: "Spy") -> dict:
     require(sym["stats"] is not None, "SYM=auto did not take the "
             "symmetric sweep")
     idx._device_planes = None          # the card holds one run at a time
-    full, _ = run_config5(d, fa, spy, "off")
+    full, idx_full = run_config5(d, fa, spy, "off")
     require(full["stats"] is None, "SYM=off took the symmetric sweep")
     if sym["sha256"] != full["sha256"]:
         diff = first_diff_line(sym["out"], full["out"])
@@ -1210,7 +1240,8 @@ def phase_config5(d: str, spy: "Spy") -> dict:
         os.remove(res["out"])
     os.remove(fa)
     return {"sym": sym, "full": full, "ratio": ratio,
-            "cell_ratio": cell_ratio, "want_ratio": want_ratio}
+            "cell_ratio": cell_ratio, "want_ratio": want_ratio,
+            "index": idx_full}
 
 
 def phase_dense_overflow(d: str, spy: "Spy") -> dict:
@@ -1299,6 +1330,286 @@ def phase_dense_overflow(d: str, spy: "Spy") -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 12 to 15: checkpoints, --profile and the mxu route
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def planes_files_match(ck: str, dev_planes, W: int) -> int:
+    """Each planes_%05d.bin of the checkpoint ``ck`` must hold the bits of
+    the card's planes over its rows [lo, hi) (copied back one shard at a
+    time); returns the planes' bytes compared."""
+    with open(os.path.join(ck, "manifest.json")) as f:
+        shards = json.load(f)["shards"]
+    L = dev_planes.shape[2]
+    n = 0
+    for sh in shards:
+        lo, hi = sh["lo"], sh["hi"]
+        disk = np.fromfile(os.path.join(ck, sh["planes"]), np.uint32)
+        want = dev_planes[:, lo:hi].cpu().numpy().view(np.uint32)
+        require(disk.size == (W + 1) * (hi - lo) * L and np.array_equal(
+            disk.reshape(W + 1, hi - lo, L), want),
+            f"{sh['planes']} differs from the card's planes [:, {lo}:{hi}]")
+        n += disk.nbytes
+    return n
+
+
+def phase_checkpoints(d: str, fof: str, qfof: str, idx15, idx10,
+                      spy: "Spy") -> dict:
+    """Phase 12: checkpoints at G = 4096. (a) The CLI's -I of phase 4's fof
+    at S=15 with --save-sharded --shards 4 (v2, compressed), then
+    --load-sharded with -Q of phase 5's queries: phase 5's bytes. (b) Phase
+    4's index saved through the API as v3 (3 raw shards with planes),
+    loaded, and its matrix through engine.query_matrix: phase 4's bytes;
+    each planes file equals the card's planes over its rows. (c) Phase 6's
+    S=10 index saved (v2, 2 shards), then --load-sharded -Q: phase 7's
+    bytes through exactly one K3 launch. Returns the launches of (a)'s and
+    (c)'s -Q runs."""
+    import shutil
+    from niqki_tpu_torch import SketchIndex, cli, engine, kernels
+    from niqki_tpu_torch.io.writers import GzTextWriter
+    res = {}
+    # (a)
+    ck = os.path.join(d, "ck_cli")
+    spy.reset()
+    t = time.time()
+    require(cli.main(["-I", fof, "-S", str(S), "-J", "0.05",
+                      "--save-sharded", ck, "--shards", "4",
+                      "-O", os.path.join(d, "ck_i.gz")]) == 0,
+            "-I --save-sharded rc")
+    wall_save = time.time() - t
+    save_s, size = spy.times["save_sharded_s"], dir_bytes(ck)
+    out = os.path.join(d, "ck_q15.gz")
+    spy.reset()
+    kernels.reset_launches()
+    t = time.time()
+    require(cli.main(["--load-sharded", ck, "-Q", qfof, "-O", out]) == 0,
+            "--load-sharded -Q rc")
+    res["a"] = dict(kernels.LAUNCHES)
+    wall_q = time.time() - t
+    require(gz_bytes(out) == gz_bytes(os.path.join(d, f"q{S}.gz")),
+            "--load-sharded -Q output differs from phase 5's")
+    require(res["a"]["bcount"] > 0 and res["a"]["psort"] > 0
+            and spy.sparse_hits > 0,
+            f"--load-sharded -Q skipped K1 or the K2 top-k route: {res['a']}")
+    log(f"phase 12 (a): -I -S {S} --save-sharded --shards 4 (v2, gzip) wall "
+        f"{wall_save:.2f} s, save_sharded {save_s:.2f} s, {size} bytes on "
+        f"disk; --load-sharded -Q wall {wall_q:.2f} s, load_sharded "
+        f"{spy.times['load_sharded_s']:.2f} s (times {spy.times}); "
+        f"launches {res['a']}; output == phase 5's")
+    shutil.rmtree(ck)
+    # (b)
+    ck = os.path.join(d, "ck_api")
+    t = time.time()
+    idx15.save_sharded(ck, num_shards=3, compress=False, planes=True)
+    save_s = time.time() - t
+    size = dir_bytes(ck)
+    t = time.time()
+    loaded = SketchIndex.load_sharded(ck)
+    load_s = time.time() - t
+    require(loaded.names == idx15.names
+            and np.array_equal(loaded.matrix(), idx15.matrix()),
+            "the reloaded phase-4 index differs from the saved one")
+    nplanes = planes_files_match(ck, idx15._planes(), idx15.params.W)
+    out = os.path.join(d, "ck_m15.gz")
+    kernels.reset_launches()
+    t = time.time()
+    with GzTextWriter(out) as w:
+        engine.query_matrix(loaded, w)
+    res["b"] = dict(kernels.LAUNCHES)
+    wall_m = time.time() - t
+    require(gz_bytes(out) == gz_bytes(os.path.join(d, f"m{S}.gz")),
+            "the reloaded index's matrix differs from phase 4's output")
+    require(res["b"]["bcount"] > 0, f"reloaded -M skipped K2: {res['b']}")
+    log(f"phase 12 (b): save_sharded v3 (3 raw shards + planes) {save_s:.2f} "
+        f"s, {size} bytes on disk ({nplanes} of planes == the card's "
+        f"planes); load_sharded {load_s:.2f} s; query_matrix of the "
+        f"reloaded index {wall_m:.2f} s, launches {res['b']}; output == "
+        f"phase 4's")
+    del loaded
+    shutil.rmtree(ck)
+    # (c)
+    ck = os.path.join(d, "ck_s10")
+    t = time.time()
+    idx10.save_sharded(ck, num_shards=2)
+    save_s = time.time() - t
+    size = dir_bytes(ck)
+    out = os.path.join(d, "ck_q10.gz")
+    spy.reset()
+    kernels.reset_launches()
+    t = time.time()
+    require(cli.main(["--load-sharded", ck, "-Q", qfof, "-O", out]) == 0,
+            "--load-sharded -Q (S=10) rc")
+    res["c"] = dict(kernels.LAUNCHES)
+    wall_q = time.time() - t
+    require(gz_bytes(out) == gz_bytes(os.path.join(d, "q10.gz")),
+            "--load-sharded -Q at S=10 differs from phase 7's output")
+    require(res["c"]["pcount"] == 1 and res["c"]["bcount"] == 0,
+            f"--load-sharded -Q at S=10 did not count through one K3 "
+            f"launch: {res['c']}")
+    log(f"phase 12 (c): S=10 save_sharded v2 (2 gzip shards) {save_s:.2f} s, "
+        f"{size} bytes on disk; --load-sharded -Q wall {wall_q:.2f} s, "
+        f"load_sharded {spy.times['load_sharded_s']:.2f} s; launches "
+        f"{res['c']}; output == phase 7's")
+    shutil.rmtree(ck)
+    return res
+
+
+def phase_checkpoints_config5(d: str, idx5, planes_s: float) -> dict:
+    """Phase 13: phase 10's config-5 index (its full sweep's, whose planes
+    are on the card) saved with 8 shards as v3 (raw rows and planes) and as
+    v2 (gzip rows), each loaded back: matrix and names equal, the planes
+    files equal to the card's planes [:, :G5], and the counts of 96 of its
+    own rows through K2 equal on the reloaded index and the original. The
+    native pack of the whole matrix is timed beside phase 10's device plane
+    build (``planes_s``). Returns the K2 launches of the reloaded counts."""
+    import gc
+    import shutil
+    import torch
+    from niqki_tpu_torch import SketchIndex, kernels
+    from niqki_tpu_torch.ops import bcount
+    W = idx5.params.W
+    mat = idx5.matrix()
+    t = time.time()
+    bcount.np_pack_bitplanes(mat, W)
+    pack_s = time.time() - t
+    rows = sorted(np.random.default_rng(SEED + 13).choice(G5, 96,
+                                                          replace=False))
+    q = mat[rows]
+    want = idx5.counts(q)
+    require(int(want.max()) == idx5.params.F, "config-5 rows do not find "
+            "themselves")
+    dev = idx5._planes()
+    res = {"pack_s": pack_s, "planes_s": planes_s, "launches": 0}
+    for tag, kw in (("v3", {"compress": False, "planes": True}),
+                    ("v2", {"compress": True, "planes": False})):
+        ck = os.path.join(d, f"ck5_{tag}")
+        t = time.time()
+        idx5.save_sharded(ck, num_shards=8, **kw)
+        save_s = time.time() - t
+        size = dir_bytes(ck)
+        nplanes = planes_files_match(ck, dev, W) if kw["planes"] else 0
+        t = time.time()
+        loaded = SketchIndex.load_sharded(ck)
+        load_s = time.time() - t
+        require(loaded.names == idx5.names and np.array_equal(
+            loaded.matrix(), mat), f"the reloaded {tag} config-5 index "
+            "differs from the saved one")
+        kernels.reset_launches()
+        t = time.time()
+        got = loaded.counts(q)
+        count_s = time.time() - t
+        launches = kernels.LAUNCHES["bcount"]
+        require(launches > 0 and np.array_equal(got, want),
+                f"K2 counts on the reloaded {tag} index differ from the "
+                f"original's ({launches} K2 launches)")
+        res["launches"] += launches
+        res[tag] = {"save_s": save_s, "load_s": load_s, "bytes": size,
+                    "planes_bytes": nplanes, "count_s": count_s}
+        log(f"phase 13: {tag} save_sharded (8 shards) {save_s:.2f} s, "
+            f"{size} bytes on disk ({nplanes} of planes == the card's "
+            f"planes); load_sharded {load_s:.2f} s; matrix and names == the "
+            f"original's; counts of 96 rows (planes built on the card + K2, "
+            f"{launches} launches) {count_s:.2f} s == the original's")
+        del loaded, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(ck)
+    log(f"phase 13: native plane pack of the whole matrix ({G5} x "
+        f"{idx5.params.F}, W={W}) {pack_s:.3f} s on the host against phase "
+        f"10's device plane build {planes_s:.3f} s")
+    return res
+
+
+def trace_kernels(trace_dir: str) -> tuple[str, int, set]:
+    """(path, bytes, kernel names) of the one Chrome trace in trace_dir."""
+    import glob
+    files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    require(len(files) == 1, f"{len(files)} traces in {trace_dir}")
+    with open(files[0]) as f:
+        trace = json.load(f)
+    names = {e.get("name", "") for e in trace["traceEvents"]
+             if e.get("cat") == "kernel"}
+    return files[0], os.path.getsize(files[0]), names
+
+
+def phase_profile(d: str, fof: str, qfof: str, wall5: float) -> dict:
+    """Phase 14: phase 5's -I/-Q at S=15 under --profile: phase 5's bytes,
+    and a trace that parses as JSON and names K1's and K2's kernels."""
+    import shutil
+    from niqki_tpu_torch import cli, kernels
+    tr = os.path.join(d, "trace")
+    out = os.path.join(d, "prof_q15.gz")
+    kernels.reset_launches()
+    t = time.time()
+    require(cli.main(["-I", fof, "-Q", qfof, "-S", str(S), "-J", "0.05",
+                      "--profile", tr, "-O", out]) == 0, "--profile rc")
+    wall = time.time() - t
+    launches = dict(kernels.LAUNCHES)
+    require(gz_bytes(out) == gz_bytes(os.path.join(d, f"q{S}.gz")),
+            "the profiled -Q output differs from phase 5's")
+    path, size, names = trace_kernels(tr)
+    k1 = sorted(n for n in names if "radix_" in n)
+    k2 = sorted(n for n in names if "bcount_kernel" in n)
+    require(k1 and k2, f"the trace names no K1 or no K2 kernel: {names}")
+    log(f"phase 14: -I/-Q -S {S} --profile wall {wall:.2f} s against phase "
+        f"5's {wall5:.2f} s; launches {launches}; trace "
+        f"{os.path.basename(path)} {size} bytes, {len(names)} kernel names, "
+        f"K1 {len(k1)} ({k1[0][:60]}...), K2 {len(k2)}; output == phase 5's")
+    shutil.rmtree(tr)
+    return {"wall_s": wall, "wall5_s": wall5, "trace_bytes": size,
+            "launches": launches}
+
+
+def phase_mxu() -> dict:
+    """Phase 15: NIQKI_TPU_COUNT=mxu (the one-hot matrix product, no
+    Pallas kernel in the JAX package and no kernel here) counts NQ queries
+    against G rows at S=12, W=12; its counts must equal K2's exactly.
+    Both are timed as whole counts calls (median of 3, after one warm
+    call)."""
+    from niqki_tpu_torch import SketchIndex, SketchParams, kernels
+    p = SketchParams(lF=12, min_fract=0.05)
+    rng = np.random.default_rng(SEED + 15)
+    mat = rng.integers(0, p.fingerprint_range, (G, p.F)).astype(np.int32)
+    share = rng.random((G, p.F)) < 0.5
+    mat[share] = np.repeat(mat[::32], 32, axis=0)[share]
+    mat[rng.random((G, p.F)) < 0.01] = -1
+    idx = SketchIndex.from_arrays(p, [f"x{i}" for i in range(G)], mat)
+    q = mat[rng.choice(G, NQ, replace=False)].copy()
+    q[rng.random(q.shape) < 0.05] = -1
+    res = {}
+    for mode in ("bcount", "mxu"):
+        os.environ["NIQKI_TPU_COUNT"] = mode
+        try:
+            kernels.reset_launches()
+            res[mode] = {"counts": idx.counts(q)}
+            times = []
+            for _ in range(3):
+                t = time.perf_counter()
+                idx.counts(q)
+                times.append((time.perf_counter() - t) * 1e3)
+            res[mode]["ms"] = statistics.median(times)
+            res[mode]["launches"] = dict(kernels.LAUNCHES)
+        finally:
+            del os.environ["NIQKI_TPU_COUNT"]
+    require(np.array_equal(res["mxu"]["counts"], res["bcount"]["counts"]),
+            "mxu counts differ from K2's")
+    require(res["bcount"]["launches"]["bcount"] > 0
+            and res["mxu"]["launches"]["bcount"] == 0,
+            f"mxu / K2 routes: {res['mxu']['launches']}, "
+            f"{res['bcount']['launches']}")
+    require(int(res["mxu"]["counts"].max()) > p.F // 2,
+            "mxu check saw no clusters")
+    log(f"phase 15: NIQKI_TPU_COUNT=mxu {NQ} x {G} x F={p.F}, W={p.W}: "
+        f"{res['mxu']['ms']:.2f} ms a counts call against K2's "
+        f"{res['bcount']['ms']:.2f} ms (planes cached), counts equal")
+    return {m: {"ms": r["ms"], "launches": r["launches"]}
+            for m, r in res.items()}
+
+
 def kernel_entry(name, source, replaces, launches, stats, later=(0, 0),
                  **extra):
     """One row of the kernels line; ``later`` holds the row's launches in
@@ -1383,10 +1694,10 @@ def main() -> int:
             require(idx._device_planes is not None and tuple(
                 idx._device_planes.shape) == (13, G, (1 << S) // 32),
                 "index planes missing or misshapen")
-            q15 = phase_query(d, fof, qfof, hidx, spy, 5)
+            q15, wall5 = phase_query(d, fof, qfof, hidx, spy, 5)
             require(q15["bcount"] > 0 and spy.sparse_hits > 0,
                     "-Q -S 15 did not take the K2 top-k route")
-            hidx15 = hidx
+            hidx15, idx15 = hidx, idx
             hidx, m10, idx = phase_matrix(d, fof, spy, 10, 6)
             require(m10["pcount"] == 1 and m10["bcount"] == 0
                     and m10["psort"] > 0,
@@ -1394,10 +1705,11 @@ def main() -> int:
             require(idx._device_packed is not None and tuple(
                 idx._device_packed.shape) == (G, 512),
                 "pair-packed index missing or misshapen")
-            q10 = phase_query(d, fof, qfof, hidx, spy, 7)
+            q10, _ = phase_query(d, fof, qfof, hidx, spy, 7)
             require(q10["pcount"] == 1 and q10["bcount"] == 0
                     and spy.sparse_hits == 0,
                     f"-Q -S 10 did not count through one K3 launch: {q10}")
+            idx10 = idx
             del idx
             # ---- phases 8 and 9
             t = time.time()
@@ -1413,6 +1725,13 @@ def main() -> int:
             # ---- phases 10 and 11
             c5 = phase_config5(d, spy)
             p11 = phase_dense_overflow(d, spy)
+            # ---- phases 12 to 15
+            p12 = phase_checkpoints(d, fof, qfof, idx15, idx10, spy)
+            del idx15, idx10
+            p13 = phase_checkpoints_config5(
+                d, c5.pop("index"), c5["full"]["times"]["planes_s"])
+            p14 = phase_profile(d, fof, qfof, wall5)
+            p15 = phase_mxu()
         finally:
             spy.close()
 
@@ -1424,14 +1743,19 @@ def main() -> int:
                 "whole call in one launch")
     def k1_later(n):
         return rows8.get(n, 0), rows9.get(n, 0)
+    l14 = p14["launches"]
     sym10, full10 = c5["sym"]["launches"], c5["full"]["launches"]
     on11 = p11["on"]["launches"]
     N5, widths5, _ = sym_widths(G5)
     print(json.dumps({"kernels": [
         kernel_entry("psort sort_i32_pow2_batch (K1, 256 x 2^17)", *k1_src,
                      m15["psort"], k1[256],
-                     launches_from="phase 4, -M -S 15",
-                     later=k1_later(1 << 17)),
+                     launches_from="phase 4, -M -S 15 (launches_phase12: "
+                     "phase 12's --load-sharded -Q at S=15 and S=10; "
+                     "launches_phase14: the profiled -I/-Q)",
+                     later=k1_later(1 << 17),
+                     launches_phase12=p12["a"]["psort"] + p12["c"]["psort"],
+                     launches_phase14=l14["psort"]),
         kernel_entry("psort sort_i32_pow2_batch (K1, 512 x 2^16, lines "
                      "mode)", *k1_src, rows8.get(1 << 16, 0), k1[512],
                      launches_from="phase 8, -i/-l -S 15: the 40-65 kb "
@@ -1443,16 +1767,21 @@ def main() -> int:
         kernel_entry("bcount _bcount_call (K2, -M window at G = 4096: "
                      "768 x 4608 of the extended planes)", *k2_src,
                      m15["bcount"], k2["-M window"],
+                     launches_phase12=p12["b"]["bcount"],
                      launches_from="phase 4, -M -S 15: the symmetric "
-                     "sweep's 6 windows of 6 blocks"),
+                     "sweep's 6 windows of 6 blocks; phase 12: the same "
+                     "sweep of the reloaded index"),
         kernel_entry("bcount _bcount_call (K2, -M shape)", *k2_src, 0,
                      k2["-M"], launches_from="not on the smoke's main path "
                      "at G = 4096: the full sweep's block (SYM=off)"),
         kernel_entry("bcount _bcount_call (K2, -Q shape)", *k2_src,
                      q15["bcount"], k2["-Q"],
                      later=(l8["bcount"], l9["bcount"]),
+                     launches_phase12=p12["a"]["bcount"],
+                     launches_phase14=l14["bcount"],
                      launches_from="phase 5, -I/-Q -S 15; phases 8 and 9: "
-                     "-l in 96-query blocks"),
+                     "-l in 96-query blocks; phase 12: --load-sharded -Q; "
+                     "phase 14: the profiled -I/-Q"),
         kernel_entry("bcount _bcount_call (K2, 96 x 102,400 rows)", *k2_src,
                      0, k2["rows"],
                      launches_from="not on the main path (phase 2 only)"),
@@ -1461,13 +1790,16 @@ def main() -> int:
                      sym10["bcount"], k2["config-5 window, block 0"],
                      launches_phase10_full=full10["bcount"],
                      launches_phase11=on11["bcount"],
+                     launches_phase13=p13["launches"],
                      k2_device_ms_phase10=c5["sym"]["k2"]["device_ms"],
                      k2_device_ms_phase10_full=c5["full"]["k2"]["device_ms"],
                      launches_from="phase 10, -i/-M -S 12 at G = 102,400 "
                      f"(BASELINE config 5), symmetric sweep: {N5} windows "
                      f"of {widths5[-1] * 768} to {widths5[0] * 768} "
                      "columns (launches_phase10_full: the full sweep's; "
-                     "launches_phase11: phase 11's symmetric sweep)"),
+                     "launches_phase11: phase 11's symmetric sweep; "
+                     "launches_phase13: the counts of 96 rows against the "
+                     "two reloaded config-5 indexes, 96 x 102,400)"),
         kernel_entry("bcount _bcount_call (K2, config-5 window, block "
                      f"{N5 // 2}: 768 x {widths5[N5 // 2] * 768} x 128 "
                      "lanes, P=13)", *k2_src, 0,
@@ -1492,12 +1824,18 @@ def main() -> int:
         kernel_entry("pcount _count_call (K3, shape e, the -Q call)",
                      *k3_src, q10["pcount"], k3["e"],
                      later=(l8["pcount"], l9["pcount"]),
-                     launches_from="phase 7, -I/-Q -S 10"),
+                     launches_phase12=p12["c"]["pcount"],
+                     launches_from="phase 7, -I/-Q -S 10; phase 12: "
+                     "--load-sharded -Q at S=10"),
         kernel_entry("pcount _count_call (K3, shape f, the -M call at S=11)",
                      *k3_src, 0, k3["f"],
                      launches_from="not on the main path (phase 2 only): "
                      "the smoke's main path runs S=10"),
-    ], "build_s": build_s, "card": smi}))
+    ], "build_s": build_s, "card": smi,
+        "checkpoints_config5": {k: p13[k] for k in ("v3", "v2", "pack_s",
+                                                      "planes_s")},
+        "profile": {k: p14[k] for k in ("wall_s", "wall5_s", "trace_bytes")},
+        "mxu": p15}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

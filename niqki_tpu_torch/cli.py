@@ -2,9 +2,10 @@
 
 The counterpart of ``niqki_tpu/cli.py``, with the same flag surface, usage
 text and operator messages; the run uses the port's SketchIndex and engine
-for -I, -i, -M, -Q, -l, -D, -L, -O, -S/-K/-W/-H/-J and -G. It runs on the
-card unless ``--device cpu`` is given, and raises when torch sees no card.
-Flags whose paths are not ported yet exit with an error naming them.
+for -I, -i, -Iddl, -M, -Q, -l, -D, -L, --save-sharded/--load-sharded
+(--shards), --profile, -O, -S/-K/-W/-H/-J and -G. It runs on the card
+unless ``--device cpu`` is given, and raises when torch sees no card.
+--mesh, whose path is not ported yet, exits with an error naming it.
 
 Run as ``python -m niqki_tpu_torch.cli`` or via ``niqki-tpu-torch``.
 """
@@ -17,6 +18,8 @@ import sys
 import time
 
 from . import engine, native
+from .debug import profile
+from .downloader import download_ncbi_fof
 from .index import SketchIndex
 from .io.writers import GzTextWriter
 from .params import SketchParams
@@ -100,8 +103,10 @@ USAGE = """
   --device <cuda|cpu>           Device to run on (default cuda).
   --backend <torch|numpy>       Compute backend (default torch).
   --binary-hits                 The reference's unreachable binary hit format.
-  Not ported yet (refused): -Iddl, --mesh, --profile, --save-sharded,
-  --load-sharded.
+  --save-sharded/--load-sharded <dir>, --shards <n>
+                                Native sharded checkpoint format.
+  --profile <dir>               Write a torch.profiler trace of the run.
+  Not ported yet (refused): --mesh.
 """
 
 
@@ -170,6 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Save the native sharded checkpoint.")
     f.add_argument("--load-sharded", metavar="<dir>",
                    help="Load a native sharded checkpoint.")
+    f.add_argument("--shards", type=int, default=1,
+                   help="Shard count for --save-sharded.")
     x = ap.add_argument_group("Other")
     x.add_argument("-Iddl", "--indexdownload", metavar="<file>",
                    help="List of NCBI accessions to download and index "
@@ -185,8 +192,8 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--mesh", metavar="<DxT|auto|off>",
                    help="Device mesh for multi-chip runs (not ported yet).")
     x.add_argument("--profile", metavar="<dir>",
-                   help="Write a profiler trace of the run (not ported "
-                        "yet).")
+                   help="Write a torch.profiler trace (Chrome/TensorBoard "
+                        "*.pt.trace.json) of the run to this directory.")
     x.add_argument("-h", "--help", action=_UsageAction, nargs=0,
                    help="Print usage and exit.")
     return ap
@@ -196,10 +203,7 @@ def _row(label: str, value) -> str:
     return f"| {label:<34}|{str(value):>30} |"
 
 
-_NOT_PORTED = (("indexdownload", "-Iddl"), ("mesh", "--mesh"),
-               ("profile", "--profile"),
-               ("save_sharded", "--save-sharded"),
-               ("load_sharded", "--load-sharded"))
+_NOT_PORTED = (("mesh", "--mesh"),)
 
 
 def main(argv=None) -> int:
@@ -223,7 +227,8 @@ def main(argv=None) -> int:
               "(use niqki-tpu)", file=sys.stderr)
         return 2
     native.available()         # builds the native host library at first use
-    return _run_inner(args)
+    with profile(args.profile, args.device):
+        return _run_inner(args)
 
 
 def _run_inner(args) -> int:
@@ -240,6 +245,10 @@ def _run_inner(args) -> int:
             return 1
         index = SketchIndex.load(args.load, device=args.device,
                                  backend=args.backend)
+    elif args.load_sharded:
+        index = SketchIndex.load_sharded(args.load_sharded,
+                                         device=args.device,
+                                         backend=args.backend)
     else:
         index = SketchIndex(params, device=args.device, backend=args.backend)
     if args.Genomes_sizes:
@@ -262,8 +271,13 @@ def _run_inner(args) -> int:
             out.close()  # a closed, valid gzip, not a half-written one
             return 1     # the reference crashes here
         engine.insert_file_lines(index, args.indexlines)
+    if args.indexdownload:
+        if _openable(args.indexdownload):
+            download_ncbi_fof(index, args.indexdownload)
     if args.dump:
         index.dump(args.dump)
+    if args.save_sharded:
+        index.save_sharded(args.save_sharded, args.shards)
 
     t_indexed = time.time()
     print(_row("Indexing lasted (s)", f"{t_indexed - t_start:g}"))

@@ -12,12 +12,14 @@ The index's device is explicit: ``SketchIndex(params, device)`` runs on
 card. Lines mode (a record per entry) sketches records over
 ``HOST_SKETCH_MAX`` bases on the device and shorter ones on the host's
 native sketcher; ``dump``/``load`` read and write the reference binary's
-dump format (``dumpfmt``). Checkpoints and the multi-device layouts are not
-ported yet.
+dump format (``dumpfmt``), and ``save_sharded``/``load_sharded`` the JAX
+package's sharded checkpoints (v2 row blocks, v3 with bit-planes; v1 npz
+is read). The multi-device layouts are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import zlib
@@ -27,14 +29,17 @@ import numpy as np
 import torch
 
 from . import hostmem, native, oracle
+from .debug import dbg
 from .dumpfmt import load_dump, save_dump
 from .io.fasta import read_records
-from .ops import bcount, pcount
+from .ops import bcount, mxucount, pcount
 from .ops.sketch import INT32_MAX, dispatch_sketch_packed_batch, pack_codes
 from .params import SketchParams
 
-# NIQKI_TPU_COUNT values the port routes (mxu is refused as not ported)
-COUNT_MODES = ("auto", "host", "bcount", "pcount", "xla")
+# NIQKI_TPU_COUNT values the port routes
+COUNT_MODES = ("auto", "host", "bcount", "pcount", "xla", "mxu")
+CKPT_FORMATS = ("niqki_tpu.sharded.v1", "niqki_tpu.sharded.v2",
+                "niqki_tpu.sharded.v3")
 
 
 def _densify(sketch: np.ndarray, p: SketchParams) -> None:
@@ -388,6 +393,8 @@ class SketchIndex:
                 records = [rec for recs in encs for rec in recs]
                 batches = dispatch_sketch_packed_batch(records, self.params,
                                                        self.device)
+                dbg(f"window @{w0}: {len(encs)} files, {len(records)} "
+                    f"records, {len(batches)} device batches")
                 if pending is not None:
                     collect(pending)
                 pending = (w0, [len(recs) for recs in encs], batches)
@@ -504,12 +511,13 @@ class SketchIndex:
         """Hit counts (Q, G) for a batch of query sketches (Q, F).
 
         Routes, as the JAX package's (NIQKI_TPU_COUNT = auto|host|bcount|
-        pcount|xla): the native host count for G <= NIQKI_TPU_HOST_COUNT_G
+        pcount|xla|mxu): the native host count for G <= NIQKI_TPU_HOST_COUNT_G
         (default 2048) under auto; the bit-plane kernel K2 for G >= 4096
         (or when asked) under its shape gate; the pair-packed kernel K3 for
         G >= 4096, W <= 14 and its shape gate (the S <= 11 indexes);
-        otherwise a plain torch blocked count, which ``xla`` forces. Any
-        other mode raises."""
+        otherwise a plain torch blocked count, which ``xla`` forces; ``mxu``
+        takes the one-hot matrix product (ops/mxucount, never a default).
+        Any other mode raises."""
         raw = np.atleast_2d(np.asarray(q_sketches, np.int32))
         if self.G == 0:
             return np.zeros((len(raw), 0), np.int32)
@@ -521,9 +529,6 @@ class SketchIndex:
                 out[i] = (mat == row[None, :]).sum(axis=1, dtype=np.int32)
             return out
         mode = os.environ.get("NIQKI_TPU_COUNT", "auto")
-        if mode == "mxu":
-            raise NotImplementedError("NIQKI_TPU_COUNT=mxu: that count route "
-                                      "is not ported yet")
         if mode not in COUNT_MODES:
             raise ValueError(f"NIQKI_TPU_COUNT={mode}: not one of "
                              f"{', '.join(COUNT_MODES)}")
@@ -536,6 +541,9 @@ class SketchIndex:
                                    self.params.fingerprint_range)
         p = self.params
         q = self._query_side(raw)
+        if mode == "mxu":
+            return mxucount.match_counts_mxu(q, self._stored_cached(), p.W,
+                                             self.device)
         want_b = mode == "bcount" or (
             mode == "auto" and self.G >= 4096)
         if want_b and bcount.available(p.F, p.W):
@@ -660,4 +668,123 @@ class SketchIndex:
         idx = cls(hdr.params(), device=device, backend=backend)
         idx._mat = mat
         idx.names = list(names)
+        return idx
+
+    # ------------------------------------------------------------------
+    # the sharded checkpoint (the JAX package's format: raw row blocks per
+    # genome range, v3 adding the bit-planes; v1 was npz)
+    def save_sharded(self, directory: str, num_shards: int = 1,
+                     compress: bool = True, planes: bool = False) -> None:
+        """Write the sharded checkpoint the JAX package writes, file for
+        file: per shard a block of little-endian int32 rows
+        (``shard_%05d.bin``, or ``.bin.gz``: one-shot zlib level 1 in a
+        gzip container), its names newline-joined in UTF-8
+        (``shard_%05d.names``) and, with ``planes`` (format v3), its
+        (W+1, rows, F/32) uint32 bit-planes from the native pack
+        (``planes_%05d.bin``); then ``manifest.json``. Raw blocks and
+        planes are written with O_DIRECT; shards are written in parallel."""
+        os.makedirs(directory, exist_ok=True)
+        mat = np.ascontiguousarray(self.matrix(), np.int32)
+        bounds = np.linspace(0, self.G, num_shards + 1).astype(int)
+        p = self.params
+        manifest = {
+            "format": CKPT_FORMATS[2] if planes else CKPT_FORMATS[1],
+            "params": {"lF": p.lF, "K": p.K, "W": p.W, "H": p.H,
+                       "min_fract": p.min_fract,
+                       # the -G stale fingerprint constants (None: derived
+                       # from H), so a reloaded -G index sketches queries
+                       # with its rows' constants
+                       "stale_mask_M": p.stale_mask_M,
+                       "stale_maximal_remainder": p.stale_maximal_remainder},
+            "genomes": self.G,
+            "compress": bool(compress),
+            "shards": [],
+        }
+
+        def write_shard(s: int) -> dict:
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            fn = f"shard_{s:05d}.bin" + (".gz" if compress else "")
+            if compress:
+                co = zlib.compressobj(1, zlib.DEFLATED, 31)
+                with open(os.path.join(directory, fn), "wb") as f:
+                    f.write(co.compress(memoryview(mat[lo:hi])))
+                    f.write(co.flush())
+            else:
+                hostmem.write_direct(os.path.join(directory, fn), mat[lo:hi])
+            nf = f"shard_{s:05d}.names"
+            with open(os.path.join(directory, nf), "wb") as f:
+                f.write("\n".join(self.names[lo:hi]).encode())
+            entry = {"file": fn, "names": nf, "lo": lo, "hi": hi}
+            if planes:
+                pf = f"planes_{s:05d}.bin"
+                hostmem.write_direct(os.path.join(directory, pf),
+                                     bcount.np_pack_bitplanes(mat[lo:hi], p.W))
+                entry["planes"] = pf
+            return entry
+
+        if num_shards == 1:
+            manifest["shards"].append(write_shard(0))
+        else:
+            with ThreadPoolExecutor(min(num_shards,
+                                        max(2, os.cpu_count() or 2))) as ex:
+                manifest["shards"].extend(ex.map(write_shard,
+                                                 range(num_shards)))
+        with open(os.path.join(directory, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+
+    @classmethod
+    def load_sharded(cls, directory: str, device="cuda",
+                     backend: str = "torch") -> "SketchIndex":
+        """The index of a sharded checkpoint (v1, v2 or v3; another format
+        raises), on ``device``: params from the manifest (the -G stale
+        constants included), the host matrix and names from the shards,
+        read in parallel. No device copy is built here: the first count
+        builds planes or pairs on the card from the matrix (v3's planes
+        files serve the multi-device restart)."""
+        with open(os.path.join(directory, "manifest.json")) as f:
+            manifest = json.load(f)
+        fmt = manifest.get("format")
+        if fmt not in CKPT_FORMATS:
+            raise ValueError(f"unknown checkpoint format {fmt!r} in "
+                             f"{directory}")
+        pp = manifest["params"]
+        idx = cls(SketchParams(
+            lF=pp["lF"], K=pp["K"], W=pp["W"], H=pp["H"],
+            min_fract=pp["min_fract"],
+            stale_mask_M=pp.get("stale_mask_M"),
+            stale_maximal_remainder=pp.get("stale_maximal_remainder")),
+            device=device, backend=backend)
+        F = idx.params.F
+        mat = hostmem.big_empty((manifest["genomes"], F), np.int32)
+        shards = manifest["shards"]
+        shard_names: list[list[str]] = [[] for _ in shards]
+
+        def read_shard(s: int) -> None:
+            sh = shards[s]
+            path = os.path.join(directory, sh["file"])
+            lo, hi = sh["lo"], sh["hi"]
+            if fmt == CKPT_FORMATS[0]:       # npz of sketches and names
+                with np.load(path, allow_pickle=True) as z:
+                    mat[lo:hi] = z["sketches"]
+                    shard_names[s] = z["names"].tolist()
+                return
+            if sh["file"].endswith(".gz"):
+                with open(path, "rb") as f:
+                    raw = zlib.decompress(f.read(), 31)
+                mat[lo:hi] = np.frombuffer(raw, np.int32).reshape(hi - lo, F)
+            else:
+                hostmem.read_direct(path, mat[lo:hi])
+            with open(os.path.join(directory, sh["names"]), "rb") as f:
+                blob = f.read().decode()
+            shard_names[s] = blob.split("\n") if hi > lo else []
+
+        if len(shards) <= 1:
+            for s in range(len(shards)):
+                read_shard(s)
+        else:
+            with ThreadPoolExecutor(min(len(shards),
+                                        max(2, os.cpu_count() or 2))) as ex:
+                list(ex.map(read_shard, range(len(shards))))
+        idx._mat = mat
+        idx.names = [n for ns in shard_names for n in ns]
         return idx

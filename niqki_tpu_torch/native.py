@@ -3,8 +3,8 @@
 The port's counterpart of ``niqki_tpu/native.py``, binding only the entry
 points the port calls: the packed FASTA/FASTQ reader (per record and
 chunked), densify, the host whole-file and per-record batch sketchers, the
-dump's bucket-stream scanner, the host equality count and the matrix and
-hit formatters. The library is built from the repository's ``native/`` at
+dump's bucket-stream scanner, the host equality count, the matrix and
+hit formatters and the bit-plane pack of checkpoints. The library is built from the repository's ``native/`` at
 first use (``make -C native``). Its Makefile probes for libdeflate with
 ``printf '\\#include <libdeflate.h>'``, which keeps the backslash under GNU
 make 4.3+ and so passes where libdeflate is absent; when that build leaves
@@ -99,6 +99,8 @@ def _bind(lib) -> None:
     lib.nq_format_matrix_dense.argtypes = [
         arr(np.uint16, flags="C_CONTIGUOUS"), i64, i64, i64, i64,
         ctypes.c_char_p, i64c, i64, ctypes.c_char_p, i64]
+    lib.nq_pack_bitplanes.restype = i64
+    lib.nq_pack_bitplanes.argtypes = [i32c, i64, i64, i64, vp, i64]
 
 
 def _load():
@@ -304,6 +306,29 @@ def count_eq(q: np.ndarray, mat: np.ndarray, fp_range: int) -> np.ndarray:
     with ThreadPoolExecutor(max_workers=threads) as ex:
         list(ex.map(run, range(0, Q, block)))
     return out
+
+
+def pack_bitplanes(mat: np.ndarray, W: int, out: np.ndarray) -> bool:
+    """Bit-plane pack of (N, F) int32 rows into ``out``, a (W+1, N, F/32)
+    uint32 array or view whose last two axes are C-contiguous (the plane
+    stride may exceed N*F/32: a row slice of larger planes). Bit p < W of
+    lane l of row n holds bit p of mat[n, 32l + j] at bit j, 0 where the
+    value lies outside [0, 2^W); plane W is 1 there. AVX-512 where the
+    library was built for it, else a scalar loop with the same bits; the
+    GIL is released. Returns False where the library is not loaded or the
+    layout does not fit."""
+    lib = _load()
+    if lib is None:
+        return False
+    m = np.ascontiguousarray(mat, np.int32)
+    N, F = m.shape
+    L = F // 32
+    if out.dtype != np.uint32 or out.shape != (W + 1, N, L):
+        return False
+    s0, s1, s2 = out.strides
+    if s2 != 4 or s1 != L * 4 or s0 % 4 != 0:
+        return False
+    return lib.nq_pack_bitplanes(m, N, F, W, out.ctypes.data, s0 // 4) == 0
 
 
 class DumpStreamScanner:

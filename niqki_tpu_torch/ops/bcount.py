@@ -15,16 +15,21 @@ launched as ``_plan`` lays out; for CPU tensors the wrapper takes the
 plain version (XNOR/AND over the planes and a SWAR popcount). Packing,
 the query-side re-encoding, top-k and the uint16 wrap are plain torch, as
 they are XLA code in the JAX package. Only the int16 query wire is ported;
-the split wire served a TPU transport.
+the split wire served a TPU transport. The host pack of checkpoints
+(``np_pack_bitplanes``) is the native library's, with the same bits as the
+device pack of the stored side.
 """
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
-from .. import kernels
-from ..hostmem import big_copy, pad_rows
+from .. import kernels, native
+from ..hostmem import big_copy, big_empty, pad_rows
 
 TILE_G = 128        # index rows are padded to a multiple of this
 BLOCK_Q = 96        # queries per count dispatch
@@ -93,6 +98,74 @@ def build_index_planes(mat: np.ndarray, W: int, device,
                   W=W, query=False)
               for lo in range(0, m.shape[0], row_chunk)]
     return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
+
+
+def np_pack_bitplanes(mat: np.ndarray, W: int,
+                      out: np.ndarray | None = None,
+                      row_chunk: int = 2048) -> np.ndarray:
+    """(N, F) host int fingerprints -> (W+1, N, F/32) uint32 bit-planes on
+    the host, the bits of pack_bitplanes(query=False) (checkpoint v3's
+    planes files). The native pack writes into ``out`` (a big_empty buffer
+    where None; a given out may be a row slice of larger planes, its last
+    two axes C-contiguous), ``row_chunk`` rows a call on a thread pool (the
+    calls release the GIL). Raises where the native library is not loaded
+    or refuses the layout; np_pack_bitplanes_plain is its numpy twin."""
+    m = np.ascontiguousarray(mat, np.int32)
+    N, F = m.shape
+    if F % 32:
+        raise ValueError(f"np_pack_bitplanes needs F % 32 == 0, got F={F}")
+    if out is None:
+        out = big_empty((W + 1, N, F // 32), np.uint32)
+    if not native.available():
+        raise RuntimeError("np_pack_bitplanes: the native library is not "
+                           "loaded")
+    if N == 0:
+        return out
+
+    def pack(lo: int) -> None:
+        hi = min(lo + row_chunk, N)
+        if not native.pack_bitplanes(m[lo:hi], W, out[:, lo:hi]):
+            raise ValueError(f"np_pack_bitplanes: the native pack refuses "
+                             f"W={W} or out {out.dtype} {out.shape} strides "
+                             f"{out.strides}")
+
+    chunks = range(0, N, row_chunk)
+    if len(chunks) == 1:
+        pack(0)
+    else:
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
+            list(ex.map(pack, chunks))
+    return out
+
+
+def np_pack_bitplanes_plain(mat: np.ndarray, W: int,
+                            out: np.ndarray | None = None,
+                            row_chunk: int = 2048) -> np.ndarray:
+    """The numpy tree pack with np_pack_bitplanes' bits, in row chunks so
+    temporaries stay ~row_chunk*F (the plain version the tests hold the
+    native pack against)."""
+    m = np.asarray(mat)
+    N, F = m.shape
+    if out is None:
+        out = np.empty((W + 1, N, F // 32), np.uint32)
+
+    def pack_bits(b):
+        c = b
+        w = 1
+        while w < 32:
+            c = c[:, 0::2] | (c[:, 1::2] << np.uint32(w))
+            w *= 2
+        return c
+
+    for lo in range(0, N, row_chunk):
+        blk = m[lo:lo + row_chunk].astype(np.int64)
+        valid = (blk >= 0) & (blk < (1 << W))
+        v = np.where(valid, blk, 0).astype(np.uint32)
+        for p in range(W):
+            out[p, lo:lo + row_chunk] = pack_bits((v >> np.uint32(p))
+                                                  & np.uint32(1))
+        out[W, lo:lo + row_chunk] = pack_bits((~valid).astype(np.uint32))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -366,3 +366,102 @@ def test_sketch_stream_launches_k1_for_long_records_only(card, tmp_path):
             idx._iter_packed_with_headers(path)))
         assert n == len(lens)
         assert kernels.LAUNCHES["psort"] == launches
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, the mxu route and --profile on the card
+
+def _random_index(p, G, seed, device="cuda"):
+    """An index of G random rows with clusters of 64 and 1% empty slots."""
+    from niqki_tpu_torch import SketchIndex
+    rng = np.random.default_rng(seed)
+    mat = rng.integers(0, p.fingerprint_range, (G, p.F)).astype(np.int32)
+    share = rng.random((G, p.F)) < 0.5
+    mat[share] = np.repeat(mat[::64], 64, axis=0)[:G][share]
+    mat[rng.random((G, p.F)) < 0.01] = -1
+    return SketchIndex.from_arrays(p, [f"r{i}" for i in range(G)], mat,
+                                   device=device)
+
+
+@pytest.mark.parametrize("lF,W,G", [(12, 12, 4100), (12, 16, 300),
+                                    (15, 12, 1000)])
+def test_native_pack_equals_card_planes(card, lF, W, G):
+    """The host native pack of the matrix (checkpoint v3's planes) holds
+    the bits of the index planes built on the card, rows [0, G)."""
+    from niqki_tpu_torch import SketchParams
+    idx = _random_index(SketchParams(lF=lF, W=W), G, seed=G)
+    dev = idx._planes()[:, :G].cpu().numpy().view(np.uint32)
+    np.testing.assert_array_equal(
+        bcount.np_pack_bitplanes(idx.matrix(), W), dev)
+
+
+@pytest.mark.parametrize("lF,route", [(12, "bcount"), (10, "pcount")])
+def test_checkpoint_reload_counts_on_card(card, tmp_path, lF, route):
+    """save_sharded (v3 raw, v2 gzip), then load_sharded on the card: the
+    device copies start empty, and the counts through K2 (S=12) or K3
+    (S=10, G >= 4096) equal the original's, one launch per count call."""
+    from niqki_tpu_torch import SketchIndex, SketchParams
+    p = SketchParams(lF=lF, min_fract=0.05)
+    idx = _random_index(p, 4200, seed=lF)
+    q = idx.matrix()[::50].copy()
+    want = idx.counts(q)
+    for tag, kw in (("v3", {"compress": False, "planes": True}),
+                    ("v2", {"compress": True})):
+        ck = str(tmp_path / tag)
+        idx.save_sharded(ck, num_shards=3, **kw)
+        back = SketchIndex.load_sharded(ck)
+        assert back.device.type == "cuda" and back.names == idx.names
+        assert (back._device_planes, back._device_packed) == (None, None)
+        np.testing.assert_array_equal(back.matrix(), idx.matrix())
+        kernels.reset_launches()
+        np.testing.assert_array_equal(back.counts(q), want)
+        assert kernels.LAUNCHES[route] == (1 if route == "pcount"
+                                           else -(-len(q) // 96))
+        assert kernels.LAUNCHES["pcount" if route == "bcount"
+                                else "bcount"] == 0
+
+
+def test_mxu_equals_k2_on_card(card, monkeypatch):
+    """NIQKI_TPU_COUNT=mxu (bf16 one-hot products, float32 sums) equals K2
+    at 96 queries x 4096 rows x F = 4096, and launches no kernel."""
+    from niqki_tpu_torch import SketchParams
+    p = SketchParams(lF=12)
+    idx = _random_index(p, 4096, seed=96)
+    rng = np.random.default_rng(97)
+    q = idx.matrix()[rng.choice(4096, 96, replace=False)].copy()
+    q[rng.random(q.shape) < 0.05] = -1
+    monkeypatch.setenv("NIQKI_TPU_COUNT", "bcount")
+    want = idx.counts(q)
+    assert int(want.max()) > 256        # past bf16's exact integers
+    monkeypatch.setenv("NIQKI_TPU_COUNT", "mxu")
+    kernels.reset_launches()
+    np.testing.assert_array_equal(idx.counts(q), want)
+    assert kernels.LAUNCHES == {"psort": 0, "bcount": 0, "pcount": 0}
+
+
+def test_profiled_query_trace_names_k2(card, tmp_path, monkeypatch):
+    """-I/-Q under --profile on the card: the output of the run without
+    it, and a trace whose kernel events name K1 and K2."""
+    import glob
+    import gzip
+    import json
+    import os
+    from niqki_tpu_torch import cli
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("NIQKI_TPU_COUNT", "bcount")
+    (tmp_path / "q.txt").write_text(f"{fix}/tiny2.fa\n{fix}/tiny1.fa\n")
+    args = ["-I", f"{fix}/fof_tiny.txt", "-Q", "q.txt", "-S", "12", "-K",
+            "21", "-J", "0.05"]
+    assert cli.main(args + ["-O", "plain.gz"]) == 0
+    assert cli.main(args + ["-O", "prof.gz", "--profile", "tr"]) == 0
+    with gzip.open("plain.gz") as a, gzip.open("prof.gz") as b:
+        assert a.read() == b.read()
+    traces = glob.glob(str(tmp_path / "tr" / "*.pt.trace.json"))
+    assert len(traces) == 1
+    with open(traces[0]) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    assert any("bcount_kernel" in n for n in names), names
+    assert any("radix_" in n for n in names), names

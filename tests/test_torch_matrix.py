@@ -122,12 +122,22 @@ def test_cli_matrix_matches_jax(tmp_path, monkeypatch, flags):
     assert _gz("t.gz") == _gz("j.gz")
 
 
-@pytest.mark.parametrize("flag", [["-Iddl", "x.txt"], ["--profile", "p"],
-                                  ["--mesh", "2x4"],
-                                  ["--save-sharded", "x"]])
-def test_cli_refuses_unported_flags(flag, capsys):
-    assert cli.main(["-M", f"{FIXDIR}/fof_tiny.txt", *flag]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+@pytest.mark.parametrize("flag", [["--mesh", "2x4"], ["--load-sharded"]])
+def test_cli_refuses_unported_flags(flag, tmp_path, capsys):
+    """--mesh alone is refused; --load-sharded, refused before it was
+    ported, now runs (-M on a loaded checkpoint)."""
+    if flag == ["--mesh", "2x4"]:
+        assert cli.main(["-M", f"{FIXDIR}/fof_tiny.txt", *flag]) == 2
+        assert "not ported yet" in capsys.readouterr().err
+        return
+    ck = str(tmp_path / "ck")
+    out = str(tmp_path / "m.gz")
+    assert cli.main(["-I", f"{FIXDIR}/fof_tiny.txt", "-S", "16", "-K", "21",
+                     "--save-sharded", ck, "-O", out, "--device", "cpu"]) == 0
+    assert cli.main(["--load-sharded", ck, "-M", f"{FIXDIR}/fof_tiny.txt",
+                     "-O", out, "--device", "cpu"]) == 0
+    assert "not ported yet" not in capsys.readouterr().err
+    assert _gz(out).count(b"\n") == 7     # 3 loaded + 3 re-inserted + header
 
 
 _BLOCK_JAX = r"""
@@ -158,6 +168,15 @@ run(["-S", "5", "-i", multi, "-l", multi, "-O", d + "/l.gz"])
 run(["-I", fof, "-S", "8", "-W", "10", "-H", "3", "-D", d + "/d.bin",
      "-O", d + "/n.gz"])
 run(["-L", d + "/d.bin", "-Q", qfof, "-O", d + "/lq.gz"])
+run(["-I", fof, "-S", "10", "-K", "21", "-J", "0.05", "--save-sharded",
+     d + "/ck", "--shards", "2", "--profile", d + "/tr", "-O", d + "/s.gz"])
+run(["--load-sharded", d + "/ck", "-Q", qfof, "-O", d + "/sq.gz"])
+import os
+os.environ["NIQKI_TPU_COUNT"] = "mxu"
+run(["--load-sharded", d + "/ck", "-Q", qfof, "-O", d + "/mq.gz"])
+del os.environ["NIQKI_TPU_COUNT"]
+import niqki_tpu_torch.downloader
+import niqki_tpu_torch.ops.mxucount
 bad = [m for m in sys.modules
        if m == "niqki_tpu" or m.startswith("niqki_tpu.")]
 assert not bad, bad
@@ -168,10 +187,12 @@ print("OK", preloaded)
 
 
 def test_matrix_runs_with_jax_blocked(tmp_path):
-    """The port's -M, -I/-Q, -i/-l and -D then -L/-Q import nothing of jax
-    or niqki_tpu: a fresh CPU process whose import system refuses jax runs
-    them all to the golden bytes and to niqki_tpu's bytes, and ends with no
-    niqki_tpu module loaded."""
+    """The port's -M, -I/-Q, -i/-l, -D then -L/-Q, and --save-sharded (with
+    --profile) then --load-sharded/-Q (also under NIQKI_TPU_COUNT=mxu)
+    import nothing of jax or niqki_tpu: a fresh CPU process whose import
+    system refuses jax runs them all to the golden bytes and to niqki_tpu's
+    bytes, imports the downloader, and ends with no niqki_tpu module
+    loaded."""
     qfof = tmp_path / "q.txt"
     qfof.write_text("".join(f"{FIXDIR}/{n}\n" for n in
                             ("tiny2.fa", "multi.fa", "tiny1.fa")))
@@ -195,6 +216,13 @@ def test_matrix_runs_with_jax_blocked(tmp_path):
     assert jcli.main(["-I", f"{FIXDIR}/fof_tiny.txt", "-Q", str(qfof),
                       "-S", "8", "-W", "10", "-H", "3", "-O", str(jout)]) == 0
     assert _gz(tmp_path / "lq.gz") == _gz(jout)
+    assert jcli.main(["-I", f"{FIXDIR}/fof_tiny.txt", "-Q", str(qfof),
+                      "-S", "10", "-K", "21", "-J", "0.05",
+                      "-O", str(jout)]) == 0
+    assert _gz(tmp_path / "sq.gz") == _gz(jout)
+    assert _gz(tmp_path / "mq.gz") == _gz(jout)
+    assert len(list((tmp_path / "tr").glob("*.pt.trace.json"))) == 1
+    assert (tmp_path / "ck" / "manifest.json").exists()
 
 
 def _imported_modules(path):
@@ -227,7 +255,11 @@ def test_chip_smoke_imports_only_the_port():
            for path in _port_sources() for m in _imported_modules(path)
            if m.split(".")[0] in ("jax", "jaxlib", "niqki_tpu")]
     assert not bad, bad
-    assert len(list(_port_sources())) > 10
+    sources = {os.path.relpath(path, REPO) for path in _port_sources()}
+    assert {f"niqki_tpu_torch/{m}" for m in (
+        "debug.py", "downloader.py", "ops/mxucount.py", "hostmem.py",
+        "index.py", "cli.py")} <= sources
+    assert len(sources) > 10
 
 
 def test_entry_points_run_on_the_card_by_default(tmp_path, monkeypatch):

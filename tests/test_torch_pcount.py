@@ -262,12 +262,28 @@ def test_counts_unknown_mode_raises(monkeypatch, mode, s8_index):
         tidx.counts(_queries(s8_index, n=2))
 
 
-def test_cli_rejects_shards(capsys):
-    """--shards belongs to the unported sharded checkpoint: the port's
-    parser does not know it."""
-    assert cli.main(["-M", f"{FIXDIR}/fof_tiny.txt", "--shards", "4",
-                     "--device", "cpu"]) == 1
-    assert "Bad usage" in capsys.readouterr().out
+def test_cli_rejects_shards(tmp_path, capsys):
+    """--shards came with the sharded checkpoint: a count that is no
+    integer is rejected as niqki_tpu's parser rejects it, and --shards 4
+    with --save-sharded writes the 4 shards niqki_tpu's CLI writes."""
+    import json
+    bad = ["-M", f"{FIXDIR}/fof_tiny.txt", "--shards", "four"]
+    for main in (jcli.main, cli.main):
+        with pytest.raises(SystemExit) as e:
+            main(bad + ["-O", str(tmp_path / "x.gz")])
+        assert e.value.code == 2
+    assert "--shards: invalid int value" in capsys.readouterr().err
+    args = ["-I", f"{FIXDIR}/fof_tiny.txt", "-S", "10", "-K", "21",
+            "--shards", "4"]
+    assert jcli.main(args + ["--save-sharded", str(tmp_path / "j"),
+                             "-O", str(tmp_path / "j.gz")]) == 0
+    assert cli.main(args + ["--save-sharded", str(tmp_path / "t"),
+                            "-O", str(tmp_path / "t.gz"),
+                            "--device", "cpu"]) == 0
+    manifests = [(tmp_path / d / "manifest.json").read_bytes()
+                 for d in ("j", "t")]
+    assert manifests[0] == manifests[1]
+    assert len(json.loads(manifests[1])["shards"]) == 4
 
 
 def test_insert_resets_packed_cache(s8_index):
