@@ -99,6 +99,23 @@ Phases (any failure raises and exits non-zero):
  15. NIQKI_TPU_COUNT=mxu (the one-hot matrix product, torch code: the JAX
      package has no Pallas kernel for it): 96 queries against 4096 rows at
      S=12, W=12, counts equal to K2's, both timed.
+ 16. the one-process mesh at G = 4096 on eight virtual devices of the one
+     card (NIQKI_TPU_VIRTUAL_DEVICES=8, --mesh 2x4): -M -S 15 must give
+     phase 4's bytes through exactly 24 K2 launches (6 blocks x 4 tp
+     shards) and 8 K1 launches for each of phase 4's; -I/-Q -S 15 phase
+     5's bytes through per-shard top-k (8 K2 launches, one a device);
+     -M -S 10 and -I/-Q -S 10 phases 6 and 7's through 8 K3 launches each;
+     -i/-l phase 8's bytes; ShardedIndex.from_checkpoint of phase 12's v3
+     directory under 1x4 the counts of phase 5's reference; then
+     entry.dryrun_multichip(8). K2 and K3 at the per-shard shapes are held
+     against their plain versions, against the unsharded call's columns
+     and F - cdist(p=0), and timed (device_ms) beside the unsharded call.
+ 17. BASELINE config 5 under --mesh 1x4 (four virtual devices): phase
+     10's -i/-M must give phase 10's SHA-256 through the mesh's full sweep,
+     134 blocks x 4 shards = 536 K2 launches; its wall, wait, emit and peak
+     device memory are printed. ShardedIndex.from_checkpoint of phase 13's
+     v3 and v2 directories under 1x4 must give phase 13's counts of 96
+     rows; the load seconds are printed.
 
 Phase 2 also checks and times K1 at 512 x 2^16, the lines-mode shape of
 phase 8's 40-65 kb contigs, and K2 at two of phase 10's windows (block 0,
@@ -109,7 +126,9 @@ main-path shape, its launches in the run that gives it that shape (phase 4
 and 5 at S=15, 6 and 7 at S=10, 8 for K1 at 2^16, 10 for the config-5
 window) and in phases 8, 9 and 12 to 14 (launches_phase8, ...; K1 by row
 length), its error, times, bound and library time, then phase 13's
-checkpoint numbers, phase 14's and phase 15's; the last line names the
+checkpoint numbers, phase 14's and phase 15's, 16's and 17's (K1, K2 and
+K3 rows carry launches_phase16 and launches_phase17, with rows of their
+own at the per-device and per-shard shapes); the last line names the
 device. Without a CUDA device, or without the
 port's package beside it, the script fails before printing either. It
 imports nothing of JAX and no module of the JAX package: the host-native
@@ -558,16 +577,26 @@ def pcount_inputs(Gx: int, S_: int, Qb: int):
 def check_pcount(Gx: int, S_: int, Qb: int = 64) -> dict:
     """K3 against its plain version: Qb queries against Gx index rows of
     F = 2^S_ (pcount_inputs), the whole count in one _count_call."""
+    return pcount_stats(*pcount_inputs(Gx, S_, Qb), Gx)
+
+
+def pcount_stats(qd, gd, qp, xp, Gx: int, whole=None) -> dict:
+    """K3 of the pair-packed queries qp against the pair-packed rows xp
+    (their int16 fingerprints qd, gd) against its plain version and
+    F - cdist(p=0), exactly, then timed: ms, device_ms, plain and library
+    ms, the launch plan and the bound. ``whole``: the counts of an
+    unsharded call whose columns these counts must equal."""
     import torch
     from niqki_tpu_torch.ops import pcount
-    F = 1 << S_
-    qd, gd, qp, xp = pcount_inputs(Gx, S_, Qb)
+    Qb, F = qd.shape
     got = pcount._count_call(qp, xp)
     want = pcount._count_plain(qp, xp)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
     require(err == 0 and torch.equal(got, want),
             f"K3 differs from its plain version at {Qb} x {Gx}, F={F}")
+    require(whole is None or torch.equal(got, whole),
+            f"K3 per shard at {Qb} x {Gx} differs from the unsharded call")
     require(int(got.max()) == F and int((got > F // 4).sum()) > 8 * 64,
             "K3 check saw no clusters")
     qf, xf = qd.float(), gd.float()
@@ -671,19 +700,24 @@ class Spy:
     """Times and records calls of the port's index methods and engine
     functions during a CLI run (the CLI builds its index internally), the
     row length of every K1 call (``k1_rows``: N -> calls), every K2 call's
-    (queries, columns) with CUDA events around it (``k2``; ``k2_summary``)
-    and the stats the symmetric sweep returns (``sym_stats``)."""
+    (queries, columns) with CUDA events around it (``k2``; ``k2_summary``),
+    the launches of each kernel at each shape (``shapes``: (kernel, shape)
+    -> launches, the shape written as the phase-2 checks write it) and the
+    stats the symmetric and mesh sweeps return (``sym_stats``,
+    ``mesh_stats``)."""
 
     def __init__(self):
         import torch
-        from niqki_tpu_torch import engine, index
-        from niqki_tpu_torch.ops import bcount, sketch
+        from niqki_tpu_torch import engine, index, kernels
+        from niqki_tpu_torch.ops import bcount, pcount, sketch
         self.times: dict[str, float] = {}
         self.index = None
         self.sparse_hits = 0
         self.k1_rows: dict[int, int] = {}
         self.k2: list = []
+        self.shapes: dict[tuple, int] = {}
         self.sym_stats = None
+        self.mesh_stats = None
         cls = index.SketchIndex
         self._orig = [(cls, n, vars(cls)[n]) for n in (
             "sketch_files", "insert_file_lines", "load", "load_sharded",
@@ -693,8 +727,11 @@ class Spy:
         self._orig.append((sketch, "sort_i32_pow2_batch",
                            sketch.sort_i32_pow2_batch))
         self._orig.append((bcount, "_bcount_call", bcount._bcount_call))
+        self._orig.append((pcount, "_count_call", pcount._count_call))
         self._orig.append((engine, "_query_matrix_selfjoin_sym",
                            engine._query_matrix_selfjoin_sym))
+        self._orig.append((engine, "_query_matrix_selfjoin_mesh",
+                           engine._query_matrix_selfjoin_mesh))
         orig = {n: f for _, n, f in self._orig}
         spy = self
 
@@ -745,25 +782,48 @@ class Spy:
             spy.sparse_hits += buf is not None
             return buf
 
+        def launched(kernel, shape, fn, *a):
+            # one count per launch the wrapper itself counts
+            n = kernels.LAUNCHES[kernel]
+            out = fn(*a)
+            if kernels.LAUNCHES[kernel] > n:
+                key = (kernel, shape)
+                spy.shapes[key] = spy.shapes.get(key, 0) + (
+                    kernels.LAUNCHES[kernel] - n)
+            return out
+
         def sort(x):
             n = int(x.shape[1])
             spy.k1_rows[n] = spy.k1_rows.get(n, 0) + 1
-            return orig["sort_i32_pow2_batch"](x)
+            return launched("psort", f"{x.shape[0]}x{n}",
+                            orig["sort_i32_pow2_batch"], x)
 
         def k2(qp, xp):
             if qp.device.type != "cuda":
                 return orig["_bcount_call"](qp, xp)
+            P, Qb, L = qp.shape
+            shape = f"P={P} Qb={Qb} G={xp.shape[1]} L={L}"
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            out = orig["_bcount_call"](qp, xp)
+            out = launched("bcount", shape, orig["_bcount_call"], qp, xp)
             b.record()
             spy.k2.append((int(qp.shape[1]), int(xp.shape[1]), a, b))
             return out
 
+        def k3(qp, xp):
+            return launched(
+                "pcount", f"Qb={qp.shape[0]} G={xp.shape[0]} "
+                f"F={2 * xp.shape[1]}", orig["_count_call"], qp, xp)
+
         def sym(index_, out_):
             spy.sym_stats = orig["_query_matrix_selfjoin_sym"](index_, out_)
             return spy.sym_stats
+
+        def mesh_sweep(index_, out_, mesh_):
+            spy.mesh_stats = orig["_query_matrix_selfjoin_mesh"](
+                index_, out_, mesh_)
+            return spy.mesh_stats
 
         cls.sketch_files = sketch_files
         cls.insert_file_lines = insert_file_lines
@@ -779,7 +839,9 @@ class Spy:
         engine.query_file_lines = timed("lines_s", orig["query_file_lines"])
         sketch.sort_i32_pow2_batch = sort
         bcount._bcount_call = k2
+        pcount._count_call = k3
         engine._query_matrix_selfjoin_sym = sym
+        engine._query_matrix_selfjoin_mesh = mesh_sweep
 
     def reset(self):
         self.times.clear()
@@ -787,7 +849,9 @@ class Spy:
         self.sparse_hits = 0
         self.k1_rows.clear()
         self.k2.clear()
+        self.shapes.clear()
         self.sym_stats = None
+        self.mesh_stats = None
 
     def k2_summary(self) -> dict:
         """K2 calls since the last reset: launches, device ms summed over
@@ -807,6 +871,22 @@ class Spy:
     def close(self):
         for owner, name, fn in self._orig:
             setattr(owner, name, fn)
+
+
+def spied_shapes(spy: "Spy", launches: dict) -> dict:
+    """The spy's launches by (kernel, shape) since its last reset, checked
+    to add up to ``launches``, the wrappers' own counts."""
+    shapes = dict(spy.shapes)
+    for k, n in launches.items():
+        seen = sum(v for (kk, _), v in shapes.items() if kk == k)
+        require(seen == n, f"the spy saw {seen} {k} launches of {n}")
+    return shapes
+
+
+def add_shapes(total: dict, part: dict) -> dict:
+    for key, n in part.items():
+        total[key] = total.get(key, 0) + n
+    return total
 
 
 def host_index(fof: str, p):
@@ -894,8 +974,9 @@ def phase_matrix(d: str, fof: str, spy: "Spy", S_: int, phase: int):
 
 
 def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy",
-                phase: int) -> tuple[dict, float]:
-    """-I/-Q of the NQ queries; returns (launches, wall s)."""
+                phase: int) -> tuple[dict, float, dict]:
+    """-I/-Q of the NQ queries; returns (launches, wall s, the host-native
+    reference: query sketches ``q`` and their counts)."""
     from niqki_tpu_torch import cli, kernels, native
     p = hidx.params
     qout = os.path.join(d, f"q{p.lF}.gz")
@@ -911,14 +992,15 @@ def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy",
         qpaths = [ln.rstrip("\n") for ln in f if ln.strip()]
     hq = host_index(qfof, p)
     fmt = native.HitsFormatter(hidx.names, p.F, p.min_score)
-    want = fmt.format(native.count_eq(hq.matrix(), hidx._stored(),
-                                      p.fingerprint_range), qpaths)
+    ref = {"q": hq.matrix(), "counts": native.count_eq(
+        hq.matrix(), hidx._stored(), p.fingerprint_range)}
+    want = fmt.format(ref["counts"], qpaths)
     got = gz_bytes(qout)
     require(got == want, "-Q hits differ from host-native hits")
     log(f"phase {phase}: -I/-Q -S {p.lF} wall {wall:.2f} s ({NQ} queries, "
         f"{got.count(b':')} hits, {spy.sparse_hits} sparse top-k batches) "
         f"== host-native; launches {launches}")
-    return launches, wall
+    return launches, wall, ref
 
 
 def host_lines_hits(qfa: str, hidx, names) -> bytes:
@@ -1238,8 +1320,7 @@ def phase_config5(d: str, spy: "Spy") -> dict:
         f"{pad / 2**20:.1f} MiB allowed)")
     for res in (sym, full):
         os.remove(res["out"])
-    os.remove(fa)
-    return {"sym": sym, "full": full, "ratio": ratio,
+    return {"sym": sym, "full": full, "ratio": ratio, "fa": fa,
             "cell_ratio": cell_ratio, "want_ratio": want_ratio,
             "index": idx_full}
 
@@ -1367,7 +1448,7 @@ def phase_checkpoints(d: str, fof: str, qfof: str, idx15, idx10,
     each planes file equals the card's planes over its rows. (c) Phase 6's
     S=10 index saved (v2, 2 shards), then --load-sharded -Q: phase 7's
     bytes through exactly one K3 launch. Returns the launches of (a)'s and
-    (c)'s -Q runs."""
+    (c)'s -Q runs and (b)'s directory (``ck_v3``), kept for phase 16."""
     import shutil
     from niqki_tpu_torch import SketchIndex, cli, engine, kernels
     from niqki_tpu_torch.io.writers import GzTextWriter
@@ -1430,7 +1511,7 @@ def phase_checkpoints(d: str, fof: str, qfof: str, idx15, idx10,
         f"reloaded index {wall_m:.2f} s, launches {res['b']}; output == "
         f"phase 4's")
     del loaded
-    shutil.rmtree(ck)
+    res["ck_v3"] = ck          # phase 16 restarts from it, then removes it
     # (c)
     ck = os.path.join(d, "ck_s10")
     t = time.time()
@@ -1465,9 +1546,10 @@ def phase_checkpoints_config5(d: str, idx5, planes_s: float) -> dict:
     files equal to the card's planes [:, :G5], and the counts of 96 of its
     own rows through K2 equal on the reloaded index and the original. The
     native pack of the whole matrix is timed beside phase 10's device plane
-    build (``planes_s``). Returns the K2 launches of the reloaded counts."""
+    build (``planes_s``). Returns the K2 launches of the reloaded counts,
+    and the two directories (``dirs``), the 96 rows (``q``) and their
+    counts (``want``), kept for phase 17."""
     import gc
-    import shutil
     import torch
     from niqki_tpu_torch import SketchIndex, kernels
     from niqki_tpu_torch.ops import bcount
@@ -1483,7 +1565,8 @@ def phase_checkpoints_config5(d: str, idx5, planes_s: float) -> dict:
     require(int(want.max()) == idx5.params.F, "config-5 rows do not find "
             "themselves")
     dev = idx5._planes()
-    res = {"pack_s": pack_s, "planes_s": planes_s, "launches": 0}
+    res = {"pack_s": pack_s, "planes_s": planes_s, "launches": 0,
+           "dirs": {}, "q": q, "want": want}
     for tag, kw in (("v3", {"compress": False, "planes": True}),
                     ("v2", {"compress": True, "planes": False})):
         ck = os.path.join(d, f"ck5_{tag}")
@@ -1517,7 +1600,7 @@ def phase_checkpoints_config5(d: str, idx5, planes_s: float) -> dict:
         del loaded, got
         gc.collect()
         torch.cuda.empty_cache()
-        shutil.rmtree(ck)
+        res["dirs"][tag] = ck
     log(f"phase 13: native plane pack of the whole matrix ({G5} x "
         f"{idx5.params.F}, W={W}) {pack_s:.3f} s on the host against phase "
         f"10's device plane build {planes_s:.3f} s")
@@ -1610,13 +1693,320 @@ def phase_mxu() -> dict:
             for m, r in res.items()}
 
 
-def kernel_entry(name, source, replaces, launches, stats, later=(0, 0),
-                 **extra):
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the one-process mesh
+
+TP = 4          # the mesh's tp shards in phases 16 and 17
+
+
+def check_shards() -> dict:
+    """K2 and K3 at the per-shard shapes of phase 16's --mesh 2x4 (G = 4096
+    rows in 4 tp shards of 1024; each device counts its dp slice of the
+    queries) and of phase 17's 1x4 over config 5 (shards of 25,600 rows
+    at S=12), each shard on the card against the plain version, the
+    unsharded call's columns and F - cdist(p=0), timed like phase 2's
+    rows, with the unsharded call's device_ms beside it
+    (``whole_device_ms``)."""
+    import torch
+    from niqki_tpu_torch.ops import bcount
+    out = {}
+    g, gd, q, xp, qp = bcount_inputs(13)
+    B, Gs = bcount.MATRIX_BLOCK, G // TP
+    xf = gd.float()
+    shapes = (("-M", bcount._planes_as_queries(xp, 0, B).contiguous(),
+               g[:B]), ("-Q", qp, q))
+    for path, qpl, qsrc in shapes:
+        whole = bcount._bcount_call(qpl, xp)
+        qf = torch.from_numpy(np.where(qsrc < 0, -3, qsrc)).cuda().float()
+        err = 0
+        for t in range(TP):
+            xs = xp[:, t * Gs:(t + 1) * Gs].contiguous()
+            got = bcount._bcount_call(qpl, xs)
+            want = bcount._bcount_plain(qpl, xs)
+            err = max(err, int((got - want).abs().max()))
+            require(torch.equal(got, want)
+                    and torch.equal(got, whole[:, t * Gs:(t + 1) * Gs]),
+                    f"K2 per shard ({path}, shard {t}) differs from its "
+                    "plain version or the unsharded call")
+            require(torch.equal(cdist_counts(
+                qf, xf[t * Gs:(t + 1) * Gs]).to(torch.int32), got),
+                f"F - cdist(p=0) differs from K2 per shard ({path})")
+        xs = xp[:, :Gs].contiguous()
+        out[f"K2 {path}"] = {
+            **bcount_stats(qpl, xs, qf, xf[:Gs], err),
+            "whole_device_ms": device_ms(
+                lambda: bcount._bcount_call(qpl, xp))}
+    del g, gd, xp, qp, xf
+    # config 5 under 1x4: a 25,600-row shard at S=12, rows 0-767 equal
+    W, F, Gs5 = 12, 4096, G5 // TP
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    g5 = torch.randint(0, 1 << W, (Gs5, F), dtype=torch.int16,
+                       device="cuda", generator=gen)
+    g5[:B] = g5[0]
+    g5[torch.rand((Gs5, F), device="cuda", generator=gen) < 0.01] = -2
+    xs = bcount.pack_bitplanes(g5, W=W, query=False)
+    qpl = bcount._planes_as_queries(xs, 0, B).contiguous()
+    got = bcount._bcount_call(qpl, xs)
+    want = bcount._bcount_plain(qpl, xs)
+    err = int((got - want).abs().max())
+    require(torch.equal(got, want),
+            "K2 per shard (config 5) differs from its plain version")
+    qf = torch.where(g5[:B] < 0, -3, g5[:B]).float()
+    require(torch.equal(cdist_counts(qf, g5.float()).to(torch.int32), got),
+            "F - cdist(p=0) differs from K2 per shard (config 5)")
+    out["K2 config-5 block"] = bcount_stats(qpl, xs, qf, g5.float(), err,
+                                            plain_reps=3)
+    del g5, xs, qpl, qf, got, want
+    # K3 at S=10: the -M call's dp slice (2048 of 4096 queries) and the
+    # -Q call's (64 of 96 padded to 128) against one shard
+    qd, gd, qp, xp = pcount_inputs(G, 10, G)
+    from niqki_tpu_torch.ops import pcount
+    for path, n in (("-M", G // 2), ("-Q", 64)):
+        qn = qp[:n].contiguous()
+        whole = pcount._count_call(qn, xp)
+        for t in range(1, TP):
+            got = pcount._count_call(qn, xp[t * Gs:(t + 1) * Gs])
+            require(torch.equal(got, whole[:, t * Gs:(t + 1) * Gs]),
+                    f"K3 per shard ({path}, shard {t}) differs from the "
+                    "unsharded call")
+        stats = pcount_stats(qd[:n], gd[:Gs], qn, xp[:Gs], Gs,
+                             whole=whole[:, :Gs])
+        stats["whole_device_ms"] = device_ms(
+            lambda: pcount._count_call(qn, xp))
+        out[f"K3 {path}"] = stats
+    return out
+
+
+def phase_mesh(d: str, fof: str, qfof: str, allfa: str, qfa: str, ref5,
+               ck_v3: str, spy: "Spy", single: dict) -> dict:
+    """Phase 16: the one-process mesh at G = 4096 on eight virtual devices
+    of the card (--mesh 2x4): the CLI's -M and -I/-Q at S=15 and S=10 and
+    -i/-l must give phases 4-8's bytes through per-shard K2 and K3 and K1
+    per device (exact launch counts); ShardedIndex.from_checkpoint of
+    phase 12's v3 directory under 1x4 must count phase 5's queries as
+    phase 5's reference did; then entry.dryrun_multichip(8) and the kernel
+    checks at the per-shard shapes (check_shards). ``single`` holds the
+    single-device runs' launches (phase 4's -M, ``m15``)."""
+    import shutil
+    import torch
+    from niqki_tpu_torch import cli, kernels
+    from niqki_tpu_torch.entry import dryrun_multichip
+    from niqki_tpu_torch.parallel.mesh import device_list, make_mesh
+    from niqki_tpu_torch.parallel.serving import ShardedIndex
+    res = {}
+
+    def run(tag, args, want):
+        out = os.path.join(d, f"mesh_{len(res)}.gz")
+        spy.reset()
+        kernels.reset_launches()
+        t = time.time()
+        rc = cli.main(args + ["--mesh", "2x4", "-O", out])
+        wall = time.time() - t
+        launches = dict(kernels.LAUNCHES)
+        require(rc == 0, f"--mesh 2x4 {tag} rc")
+        require(gz_bytes(out) == gz_bytes(os.path.join(d, want)),
+                f"--mesh 2x4 {tag} output differs from {want}")
+        os.remove(out)
+        res[tag] = {"wall_s": wall, "launches": launches,
+                    "shapes": spied_shapes(spy, launches),
+                    "k2": spy.k2_summary(), "sparse": spy.sparse_hits,
+                    "sweep": spy.mesh_stats,
+                    "times": {k: round(v, 3) for k, v in spy.times.items()}}
+        log(f"phase 16: --mesh 2x4 {tag} wall {wall:.2f} s; launches "
+            f"{launches}, by shape {res[tag]['shapes']}; K2 "
+            f"{res[tag]['k2']['launches']} launches, "
+            f"{res[tag]['k2']['device_ms']:.1f} event ms; sparse top-k "
+            f"batches {spy.sparse_hits}; mesh sweep {spy.mesh_stats}; "
+            f"output == {want}")
+        return launches
+
+    os.environ["NIQKI_TPU_VIRTUAL_DEVICES"] = "8"
+    try:
+        m = run("-M -S 15", ["-M", fof, "-S", str(S), "-J", "0.05"],
+                f"m{S}.gz")
+        require(m["bcount"] == 24 and m["pcount"] == 0
+                and m["psort"] == 8 * single["m15"]["psort"]
+                and res["-M -S 15"]["sweep"]["blocks"] == 6,
+                f"-M -S 15 on 2x4 launched {m}, not 24 K2 (6 blocks x 4 "
+                f"shards) and 8 K1 for each of phase 4's "
+                f"{single['m15']['psort']}")
+        m = run("-I/-Q -S 15", ["-I", fof, "-Q", qfof, "-S", str(S), "-J",
+                                "0.05"], f"q{S}.gz")
+        require(m["bcount"] == 8 and m["psort"] % 8 == 0
+                and res["-I/-Q -S 15"]["sparse"] > 0,
+                f"-I/-Q -S 15 on 2x4 did not take per-shard top-k through "
+                f"8 K2 launches: {m}")
+        for tag, args, want in (
+                ("-M -S 10", ["-M", fof, "-S", "10", "-J", "0.05"],
+                 "m10.gz"),
+                ("-I/-Q -S 10", ["-I", fof, "-Q", qfof, "-S", "10", "-J",
+                                 "0.05"], "q10.gz")):
+            m = run(tag, args, want)
+            require(m["pcount"] == 8 and m["bcount"] == 0,
+                    f"{tag} on 2x4 did not count through 8 K3 launches "
+                    f"(one a device): {m}")
+        m = run("-i/-l", ["-i", allfa, "-l", qfa, "-J", "0.05"], "lines.gz")
+        require(m["psort"] > 0 and m["psort"] % 8 == 0 and m["bcount"] > 0
+                and res["-i/-l"]["sparse"] > 0,
+                f"-i/-l on 2x4 skipped K1 per device or per-shard top-k: "
+                f"{m}")
+        # the mesh-direct restart of phase 12's v3 directory under 1x4
+        mesh = make_mesh(device_list("cuda")[:TP], dp=1, tp=TP)
+        t = time.time()
+        srv = ShardedIndex.from_checkpoint(ck_v3, mesh)
+        torch.cuda.synchronize()
+        load_s = time.time() - t
+        spy.reset()
+        kernels.reset_launches()
+        t = time.time()
+        got = srv.counts(ref5["q"])
+        count_s = time.time() - t
+        launches = dict(kernels.LAUNCHES)
+        require(np.array_equal(got, ref5["counts"]),
+                "from_checkpoint counts on 1x4 differ from phase 5's")
+        require(launches["bcount"] == TP, f"from_checkpoint counts on 1x4 "
+                f"did not launch K2 once a shard: {launches}")
+        res["restart"] = {"load_s": load_s, "count_s": count_s,
+                          "launches": launches,
+                          "shapes": spied_shapes(spy, launches)}
+        log(f"phase 16: ShardedIndex.from_checkpoint (v3, 3 raw shards, "
+            f"S=15) on 1x4 {load_s:.2f} s, counts of {NQ} queries "
+            f"{count_s:.2f} s == phase 5's reference; launches {launches}")
+        del srv
+        t = time.time()
+        spy.reset()
+        kernels.reset_launches()
+        dryrun_multichip(8)
+        res["dryrun"] = {"s": time.time() - t,
+                         "launches": dict(kernels.LAUNCHES)}
+        res["dryrun"]["shapes"] = spied_shapes(spy, res["dryrun"]["launches"])
+        spy.reset()
+        log(f"phase 16: entry.dryrun_multichip(8) OK in "
+            f"{res['dryrun']['s']:.2f} s; launches "
+            f"{res['dryrun']['launches']}")
+    finally:
+        del os.environ["NIQKI_TPU_VIRTUAL_DEVICES"]
+        shutil.rmtree(ck_v3)
+    torch.cuda.empty_cache()
+    res["shards"] = check_shards()
+    for key, e in res["shards"].items():
+        log(f"phase 16: {key} per shard {e}")
+    return res
+
+
+def phase_mesh_config5(d: str, fa: str, sha_full: str, p13: dict,
+                       spy: "Spy") -> dict:
+    """Phase 17: BASELINE config 5 under --mesh 1x4 (four virtual devices
+    of the card): phase 10's -i/-M through the mesh's full sweep must give
+    phase 10's SHA-256 through exactly 134 x 4 = 536 K2 launches; then
+    ShardedIndex.from_checkpoint of phase 13's v3 and v2 directories
+    under 1x4 must count phase 13's 96 rows as phase 13 did."""
+    os.environ["NIQKI_TPU_VIRTUAL_DEVICES"] = str(TP)
+    try:
+        res = phase17_sweep(d, fa, sha_full, spy)
+        res.update(phase17_restarts(p13, spy))
+    finally:
+        del os.environ["NIQKI_TPU_VIRTUAL_DEVICES"]
+        os.remove(fa)
+    return res
+
+
+def phase17_sweep(d: str, fa: str, sha_full: str, spy: "Spy") -> dict:
+    """Phase 17's -i/-M run (phase_mesh_config5)."""
+    import gc
+    import torch
+    from niqki_tpu_torch import cli, kernels
+    out = os.path.join(d, "config5_mesh.gz")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    os.environ["NIQKI_TPU_MATRIX_STATS"] = "1"
+    spy.reset()
+    kernels.reset_launches()
+    t = time.time()
+    try:
+        rc = cli.main(["-i", fa, "-M", fa, "-S", "12", "-J", "0.05",
+                       "--mesh", f"1x{TP}", "-O", out])
+        launches = dict(kernels.LAUNCHES)
+        wall = time.time() - t
+        require(rc == 0, "config 5 --mesh 1x4 rc")
+        res = {"wall_s": wall, "launches": launches,
+               "shapes": spied_shapes(spy, launches),
+               "k2": spy.k2_summary(), "sweep": spy.mesh_stats,
+               "times": {k: round(v, 3) for k, v in spy.times.items()},
+               "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "sha256": sha256(out)}
+    finally:
+        del os.environ["NIQKI_TPU_MATRIX_STATS"]
+        spy.reset()
+        if os.path.exists(out):
+            os.remove(out)
+    require(res["sha256"] == sha_full, "config 5 on 1x4 differs from phase "
+            f"10's output: sha256 {res['sha256']} vs {sha_full}")
+    st = res["sweep"]
+    require(st is not None and st["blocks"] == 134 and st["tp"] == TP
+            and st["refetch"] == 0 and launches["bcount"] == 536,
+            f"config 5 on 1x4: {launches}, sweep {st}; expected 536 K2 "
+            "launches (134 blocks x 4 shards)")
+    log(f"phase 17: config 5 -i/-M --mesh 1x{TP} wall {wall:.2f} s; "
+        f"{res['times']} (ingest_s: -i; sweep_s: the ShardedIndex build and "
+        f"the sweep); mesh sweep {st}; launches {launches}; K2 "
+        f"{res['k2']['launches']} launches, {res['k2']['device_ms']:.1f} "
+        f"event ms; peak device memory {res['peak_device_gib']:.3f} GiB; "
+        f"sha256 == phase 10's")
+    return res
+
+
+def phase17_restarts(p13: dict, spy: "Spy") -> dict:
+    """Phase 17's mesh-direct restarts (phase_mesh_config5);
+    ``restart_shapes`` holds both restarts' launches by shape."""
+    import gc
+    import shutil
+    import torch
+    from niqki_tpu_torch import kernels
+    from niqki_tpu_torch.parallel.mesh import device_list, make_mesh
+    from niqki_tpu_torch.parallel.serving import ShardedIndex
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(device_list("cuda")[:TP], dp=1, tp=TP)
+    res = {"restart_shapes": {}}
+    for tag in ("v3", "v2"):
+        ck = p13["dirs"][tag]
+        t = time.time()
+        srv = ShardedIndex.from_checkpoint(ck, mesh)
+        torch.cuda.synchronize()
+        load_s = time.time() - t
+        spy.reset()
+        kernels.reset_launches()
+        t = time.time()
+        got = srv.counts(p13["q"])
+        count_s = time.time() - t
+        k2 = kernels.LAUNCHES["bcount"]
+        add_shapes(res["restart_shapes"], spied_shapes(spy, kernels.LAUNCHES))
+        require(np.array_equal(got, p13["want"]) and k2 == TP,
+                f"from_checkpoint ({tag}) counts on 1x4 differ from phase "
+                f"13's ({k2} K2 launches)")
+        res[tag] = {"load_s": load_s, "count_s": count_s, "launches": k2}
+        log(f"phase 17: ShardedIndex.from_checkpoint ({tag}, 8 shards) on "
+            f"1x{TP} {load_s:.2f} s, counts of 96 rows {count_s:.2f} s "
+            f"== phase 13's; {k2} K2 launches")
+        del srv, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(ck)
+    return res
+
+
+def kernel_entry(name, source, replaces, launches, stats, mesh,
+                 later=(0, 0), **extra):
     """One row of the kernels line; ``later`` holds the row's launches in
-    phases 8 and 9."""
+    phases 8 and 9, ``mesh`` its launches in phases 16 and 17, each the
+    spy's count at the row's shape."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "launches_phase8": later[0], "launches_phase9": later[1],
+            "launches_phase16": mesh[0], "launches_phase17": mesh[1],
             **stats, **extra}
 
 
@@ -1694,7 +2084,7 @@ def main() -> int:
             require(idx._device_planes is not None and tuple(
                 idx._device_planes.shape) == (13, G, (1 << S) // 32),
                 "index planes missing or misshapen")
-            q15, wall5 = phase_query(d, fof, qfof, hidx, spy, 5)
+            q15, wall5, ref5 = phase_query(d, fof, qfof, hidx, spy, 5)
             require(q15["bcount"] > 0 and spy.sparse_hits > 0,
                     "-Q -S 15 did not take the K2 top-k route")
             hidx15, idx15 = hidx, idx
@@ -1705,7 +2095,7 @@ def main() -> int:
             require(idx._device_packed is not None and tuple(
                 idx._device_packed.shape) == (G, 512),
                 "pair-packed index missing or misshapen")
-            q10, _ = phase_query(d, fof, qfof, hidx, spy, 7)
+            q10, _, _ = phase_query(d, fof, qfof, hidx, spy, 7)
             require(q10["pcount"] == 1 and q10["bcount"] == 0
                     and spy.sparse_hits == 0,
                     f"-Q -S 10 did not count through one K3 launch: {q10}")
@@ -1732,8 +2122,20 @@ def main() -> int:
                 d, c5.pop("index"), c5["full"]["times"]["planes_s"])
             p14 = phase_profile(d, fof, qfof, wall5)
             p15 = phase_mxu()
+            # ---- phases 16 and 17
+            p16 = phase_mesh(d, fof, qfof, allfa, qfa, ref5,
+                             p12.pop("ck_v3"), spy, {"m15": m15})
+            p17 = phase_mesh_config5(d, c5["fa"], c5["full"]["sha256"], p13,
+                                     spy)
         finally:
             spy.close()
+    k1_dev = check_psort(32, LEN, 1 << 17)
+    log(f"phase 16: K1 psort per device (32 x 2^17) {k1_dev}")
+    # -i/-l's most launched shapes a device (phase 16's launches by shape)
+    k1_dev_lines = {N: check_psort(B, n, 1 << N)
+                    for B, n, N in ((24, LEN, 17), (48, 52_000, 16))}
+    for N, e in k1_dev_lines.items():
+        log(f"phase 16: K1 psort per device, lines mode (2^{N}) {e}")
 
     k1_src = ("niqki_tpu_torch/csrc/psort.cu", "niqki_tpu/ops/psort.py:125")
     k2_src = ("niqki_tpu_torch/csrc/bcount.cu", "niqki_tpu/ops/bcount.py:103")
@@ -1745,11 +2147,26 @@ def main() -> int:
         return rows8.get(n, 0), rows9.get(n, 0)
     l14 = p14["launches"]
     sym10, full10 = c5["sym"]["launches"], c5["full"]["launches"]
+    # phases 16 and 17 by (kernel, shape): every run of the phase
+    sh16 = {}
+    for r in p16.values():
+        if "shapes" in r:
+            add_shapes(sh16, r["shapes"])
+    sh17 = add_shapes(dict(p17["shapes"]), p17["restart_shapes"])
+    log(f"phases 16-17: launches by shape {sh16} / {sh17}")
+
+    def mesh(kernel, stats):
+        key = (kernel, stats["shape"])
+        return sh16.get(key, 0), sh17.get(key, 0)
+
+    def in16(tag, kernel, stats):
+        return p16[tag]["shapes"].get((kernel, stats["shape"]), 0)
+    sh = p16["shards"]
     on11 = p11["on"]["launches"]
     N5, widths5, _ = sym_widths(G5)
     print(json.dumps({"kernels": [
         kernel_entry("psort sort_i32_pow2_batch (K1, 256 x 2^17)", *k1_src,
-                     m15["psort"], k1[256],
+                     m15["psort"], k1[256], mesh("psort", k1[256]),
                      launches_from="phase 4, -M -S 15 (launches_phase12: "
                      "phase 12's --load-sharded -Q at S=15 and S=10; "
                      "launches_phase14: the profiled -I/-Q)",
@@ -1758,24 +2175,27 @@ def main() -> int:
                      launches_phase14=l14["psort"]),
         kernel_entry("psort sort_i32_pow2_batch (K1, 512 x 2^16, lines "
                      "mode)", *k1_src, rows8.get(1 << 16, 0), k1[512],
+                     mesh("psort", k1[512]),
                      launches_from="phase 8, -i/-l -S 15: the 40-65 kb "
                      "contigs", later=k1_later(1 << 16)),
         kernel_entry("psort sort_i32_pow2_batch (K1, 1 x 2^23)", *k1_src, 0,
-                     k1[1], launches_from=ecoli),
+                     k1[1], mesh("psort", k1[1]), launches_from=ecoli),
         kernel_entry("psort sort_i32_pow2_batch (K1, 6 x 2^23)", *k1_src, 0,
-                     k1[6], launches_from=ecoli),
+                     k1[6], mesh("psort", k1[6]), launches_from=ecoli),
         kernel_entry("bcount _bcount_call (K2, -M window at G = 4096: "
                      "768 x 4608 of the extended planes)", *k2_src,
                      m15["bcount"], k2["-M window"],
+                     mesh("bcount", k2["-M window"]),
                      launches_phase12=p12["b"]["bcount"],
                      launches_from="phase 4, -M -S 15: the symmetric "
                      "sweep's 6 windows of 6 blocks; phase 12: the same "
                      "sweep of the reloaded index"),
         kernel_entry("bcount _bcount_call (K2, -M shape)", *k2_src, 0,
-                     k2["-M"], launches_from="not on the smoke's main path "
+                     k2["-M"], mesh("bcount", k2["-M"]),
+                     launches_from="not on the smoke's main path "
                      "at G = 4096: the full sweep's block (SYM=off)"),
         kernel_entry("bcount _bcount_call (K2, -Q shape)", *k2_src,
-                     q15["bcount"], k2["-Q"],
+                     q15["bcount"], k2["-Q"], mesh("bcount", k2["-Q"]),
                      later=(l8["bcount"], l9["bcount"]),
                      launches_phase12=p12["a"]["bcount"],
                      launches_phase14=l14["bcount"],
@@ -1783,11 +2203,12 @@ def main() -> int:
                      "-l in 96-query blocks; phase 12: --load-sharded -Q; "
                      "phase 14: the profiled -I/-Q"),
         kernel_entry("bcount _bcount_call (K2, 96 x 102,400 rows)", *k2_src,
-                     0, k2["rows"],
+                     0, k2["rows"], mesh("bcount", k2["rows"]),
                      launches_from="not on the main path (phase 2 only)"),
         kernel_entry("bcount _bcount_call (K2, config-5 window, block 0: "
                      f"768 x {widths5[0] * 768} x 128 lanes, P=13)", *k2_src,
                      sym10["bcount"], k2["config-5 window, block 0"],
+                     mesh("bcount", k2["config-5 window, block 0"]),
                      launches_phase10_full=full10["bcount"],
                      launches_phase11=on11["bcount"],
                      launches_phase13=p13["launches"],
@@ -1804,38 +2225,102 @@ def main() -> int:
                      f"{N5 // 2}: 768 x {widths5[N5 // 2] * 768} x 128 "
                      "lanes, P=13)", *k2_src, 0,
                      k2[f"config-5 window, block {N5 // 2}"],
+                     mesh("bcount", k2[f"config-5 window, block {N5 // 2}"]),
                      launches_from="one of phase 10's window widths: its "
                      "launches are counted in the row above"),
         *[kernel_entry(f"bcount _bcount_call (K2, {path} shape at S={S_}, "
                        f"{k2[f'{path} S={S_}']['shape']})", *k2_src, 0,
                        k2[f"{path} S={S_}"],
+                       mesh("bcount", k2[f"{path} S={S_}"]),
                        launches_from="not on the main path (phase 2 only):"
                        " S <= 11 counts through K3")
           for S_ in (10, 11) for path in ("-M", f"-M {G} rows", "-Q")],
-        kernel_entry("pcount _count_call (K3, shape a)", *k3_src, 0, k3["a"],
-                     launches_from=off_path),
-        kernel_entry("pcount _count_call (K3, shape b)", *k3_src, 0, k3["b"],
-                     launches_from=off_path),
-        kernel_entry("pcount _count_call (K3, shape c)", *k3_src, 0, k3["c"],
-                     launches_from=off_path),
+        *[kernel_entry(f"pcount _count_call (K3, shape {key})", *k3_src, 0,
+                       k3[key], mesh("pcount", k3[key]),
+                       launches_from=off_path) for key in "abc"],
         kernel_entry("pcount _count_call (K3, shape d, the -M call)",
-                     *k3_src, m10["pcount"], k3["d"],
+                     *k3_src, m10["pcount"], k3["d"], mesh("pcount", k3["d"]),
                      launches_from="phase 6, -M -S 10"),
         kernel_entry("pcount _count_call (K3, shape e, the -Q call)",
-                     *k3_src, q10["pcount"], k3["e"],
+                     *k3_src, q10["pcount"], k3["e"], mesh("pcount", k3["e"]),
                      later=(l8["pcount"], l9["pcount"]),
                      launches_phase12=p12["c"]["pcount"],
                      launches_from="phase 7, -I/-Q -S 10; phase 12: "
                      "--load-sharded -Q at S=10"),
         kernel_entry("pcount _count_call (K3, shape f, the -M call at S=11)",
-                     *k3_src, 0, k3["f"],
+                     *k3_src, 0, k3["f"], mesh("pcount", k3["f"]),
                      launches_from="not on the main path (phase 2 only): "
                      "the smoke's main path runs S=10"),
+        kernel_entry("psort sort_i32_pow2_batch (K1, 32 x 2^17, per device "
+                     "at --mesh 2x4)", *k1_src,
+                     in16("-M -S 15", "psort", k1_dev), k1_dev,
+                     mesh("psort", k1_dev),
+                     launches_from="phase 16, -M -S 15 on 2x4: each "
+                     "256-record batch split over 8 devices "
+                     "(launches_phase16: every phase 16 run at this shape)"),
+        *[kernel_entry(f"psort sort_i32_pow2_batch (K1, {e['shape']}, per "
+                       "device at --mesh 2x4, lines mode)", *k1_src,
+                       in16("-i/-l", "psort", e), e, mesh("psort", e),
+                       launches_from="phase 16, -i/-l on 2x4: "
+                       + ("the -i ingest's batches of genomes" if N == 17
+                          else "the 40-65 kb contigs")
+                       + " split over 8 devices (launches_phase16: every "
+                       "phase 16 run at this shape)")
+          for N, e in k1_dev_lines.items()],
+        kernel_entry("bcount _bcount_call (K2, per shard at --mesh 2x4, -M "
+                     "block: 768 x 1024 x 1024 lanes, P=13)", *k2_src,
+                     in16("-M -S 15", "bcount", sh["K2 -M"]), sh["K2 -M"],
+                     mesh("bcount", sh["K2 -M"]),
+                     launches_from="phase 16, -M -S 15 on 2x4: 6 blocks x "
+                     "4 tp shards (launches_phase16: every phase 16 run at "
+                     "this shape)"),
+        kernel_entry("bcount _bcount_call (K2, per shard at --mesh 2x4, -Q: "
+                     "96 x 1024 x 1024 lanes, P=13)", *k2_src,
+                     in16("-I/-Q -S 15", "bcount", sh["K2 -Q"]), sh["K2 -Q"],
+                     mesh("bcount", sh["K2 -Q"]),
+                     launches_from="phase 16, -I/-Q -S 15 on 2x4: one "
+                     "96-query block a device (launches_phase16: every "
+                     "phase 16 run at this shape, -l's blocks among them)"),
+        kernel_entry("bcount _bcount_call (K2, per shard at --mesh 1x4 over "
+                     "config 5: 768 x 25,600 x 128 lanes, P=13)", *k2_src,
+                     p17["shapes"].get(("bcount",
+                                        sh["K2 config-5 block"]["shape"]), 0),
+                     sh["K2 config-5 block"],
+                     mesh("bcount", sh["K2 config-5 block"]),
+                     launches_from="phase 17, -i/-M -S 12 at G = 102,400 on "
+                     "1x4: 134 blocks x 4 shards"),
+        kernel_entry("pcount _count_call (K3, per shard at --mesh 2x4, -M "
+                     "S=10: 2048 x 1024 x 512 lanes)", *k3_src,
+                     in16("-M -S 10", "pcount", sh["K3 -M"]), sh["K3 -M"],
+                     mesh("pcount", sh["K3 -M"]),
+                     launches_from="phase 16, -M -S 10 on 2x4: one launch a "
+                     "device (launches_phase16: every phase 16 run at this "
+                     "shape)"),
+        kernel_entry("pcount _count_call (K3, per shard at --mesh 2x4, -Q "
+                     "S=10: 64 x 1024 x 512 lanes)", *k3_src,
+                     in16("-I/-Q -S 10", "pcount", sh["K3 -Q"]), sh["K3 -Q"],
+                     mesh("pcount", sh["K3 -Q"]),
+                     launches_from="phase 16, -I/-Q -S 10 on 2x4: 96 "
+                     "queries padded to 128, 64 a device (launches_phase16: "
+                     "every phase 16 run at this shape)"),
     ], "build_s": build_s, "card": smi,
         "checkpoints_config5": {k: p13[k] for k in ("v3", "v2", "pack_s",
                                                       "planes_s")},
         "profile": {k: p14[k] for k in ("wall_s", "wall5_s", "trace_bytes")},
-        "mxu": p15}))
+        "mxu": p15,
+        "mesh_phase16": {k: {kk: v[kk] for kk in ("wall_s", "launches")}
+                         for k, v in p16.items() if "launches" in v and
+                         "wall_s" in v},
+        "mesh_restart_phase16": {k: v for k, v in p16["restart"].items()
+                                 if k != "shapes"},
+        "dryrun_phase16": {k: v for k, v in p16["dryrun"].items()
+                           if k != "shapes"},
+        "mesh_config5_phase17": {k: p17[k] for k in (
+            "wall_s", "times", "sweep", "peak_device_gib", "launches",
+            "v3", "v2")},
+        "launches_by_shape": {
+            "phase16": {f"{k} {shp}": n for (k, shp), n in sh16.items()},
+            "phase17": {f"{k} {shp}": n for (k, shp), n in sh17.items()}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

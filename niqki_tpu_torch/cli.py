@@ -3,9 +3,9 @@
 The counterpart of ``niqki_tpu/cli.py``, with the same flag surface, usage
 text and operator messages; the run uses the port's SketchIndex and engine
 for -I, -i, -Iddl, -M, -Q, -l, -D, -L, --save-sharded/--load-sharded
-(--shards), --profile, -O, -S/-K/-W/-H/-J and -G. It runs on the card
-unless ``--device cpu`` is given, and raises when torch sees no card.
---mesh, whose path is not ported yet, exits with an error naming it.
+(--shards), --profile, --mesh, -O, -S/-K/-W/-H/-J and -G. It runs on the
+card unless ``--device cpu`` is given, and raises when torch sees no card.
+--mesh sets NIQKI_TPU_MESH for the run (``parallel.auto``).
 
 Run as ``python -m niqki_tpu_torch.cli`` or via ``niqki-tpu-torch``.
 """
@@ -106,7 +106,7 @@ USAGE = """
   --save-sharded/--load-sharded <dir>, --shards <n>
                                 Native sharded checkpoint format.
   --profile <dir>               Write a torch.profiler trace of the run.
-  Not ported yet (refused): --mesh.
+  --mesh <DxT|auto|off>         Device mesh (NIQKI_TPU_MESH; one process).
 """
 
 
@@ -190,7 +190,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device to run on (default cuda; raises without a "
                         "card).")
     x.add_argument("--mesh", metavar="<DxT|auto|off>",
-                   help="Device mesh for multi-chip runs (not ported yet).")
+                   help="Device mesh of one process: 'auto' (default; "
+                        "('dp','tp') over all cards when more than one), "
+                        "an explicit shape like '2x4' (over "
+                        "NIQKI_TPU_VIRTUAL_DEVICES entries where set), or "
+                        "'off'.")
     x.add_argument("--profile", metavar="<dir>",
                    help="Write a torch.profiler trace (Chrome/TensorBoard "
                         "*.pt.trace.json) of the run to this directory.")
@@ -201,9 +205,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _row(label: str, value) -> str:
     return f"| {label:<34}|{str(value):>30} |"
-
-
-_NOT_PORTED = (("mesh", "--mesh"),)
 
 
 def main(argv=None) -> int:
@@ -221,14 +222,25 @@ def main(argv=None) -> int:
     if args.logo and len([a for a in raw if a]) == 1:
         _print_logo()
         return 0
-    refused = [flag for attr, flag in _NOT_PORTED if getattr(args, attr)]
-    if refused:
-        print(f"niqki-tpu-torch: {', '.join(refused)} not ported yet "
-              "(use niqki-tpu)", file=sys.stderr)
-        return 2
     native.available()         # builds the native host library at first use
     with profile(args.profile, args.device):
+        return _run(args)
+
+
+def _run(args) -> int:
+    """_run_inner with NIQKI_TPU_MESH set to --mesh for the run and
+    restored after it."""
+    if not args.mesh:
         return _run_inner(args)
+    prev = os.environ.get("NIQKI_TPU_MESH")
+    os.environ["NIQKI_TPU_MESH"] = args.mesh
+    try:
+        return _run_inner(args)
+    finally:
+        if prev is None:
+            del os.environ["NIQKI_TPU_MESH"]
+        else:
+            os.environ["NIQKI_TPU_MESH"] = prev
 
 
 def _run_inner(args) -> int:

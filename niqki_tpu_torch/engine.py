@@ -15,7 +15,9 @@ counted against its upper-triangle column window only, and the host mirrors
 the lower half (``NIQKI_TPU_MATRIX_SYM=auto|on|off``; ``off`` keeps the
 full sweep, which writes the same bytes). Indexes outside the bit-plane
 gate (S <= 11) take the dense loop, whose counts come from
-``SketchIndex.counts`` (K3 at G >= 4096).
+``SketchIndex.counts`` (K3 at G >= 4096). Under an active mesh the matrix
+takes the mesh's full sweep (``_query_matrix_selfjoin_mesh``) whatever
+NIQKI_TPU_MATRIX_SYM says, as the JAX package routes it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from .io.fasta import exists, read_fof, read_query_fof, read_records
 from .io.writers import (GzTextWriter, write_binary_hits, write_matrix_header,
                          write_matrix_row, write_pretty_hits)
 from .ops import bcount
+from .parallel.auto import active_mesh
 
 __all__ = ["insert_fof_whole", "insert_file_lines", "query_fof_whole",
            "query_file_lines", "query_matrix", "query_file_matrix",
@@ -238,12 +241,99 @@ def _run_ahead(n: int, dispatch, fetch, emit) -> dict:
     return stats
 
 
-def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter) -> bool:
-    """The all-vs-all sweep over blocks of B index rows: the symmetric
-    sweep for sparse matrices unless NIQKI_TPU_MATRIX_SYM=off, else the
-    full sweep, each block against every column. Byte-identical with the
-    dense loop of ``query_matrix``. min_score == 0 always takes the full
-    sweep: every cell prints, so dense rows cross whatever the symmetry."""
+def _block_starts(G: int, Gp: int, B: int) -> list[tuple[int, int, int, int]]:
+    """(lo, start, off, n) for each block of B rows: the block's first row
+    lo, the clamped start that keeps [start, start+B) inside [0, Gp), the
+    offset of lo in it and its count of real rows."""
+    starts = []
+    for lo in range(0, G, B):
+        start = max(0, min(lo, Gp - B))
+        starts.append((lo, start, lo - start, min(B - (lo - start), G - lo)))
+    return starts
+
+
+def _query_matrix_selfjoin_mesh(index: SketchIndex, out: GzTextWriter,
+                                mesh):
+    """All-vs-all under an active mesh, the full sweep: each block of
+    B = min(MATRIX_BLOCK, Gp) global rows (at the clamped starts, so every
+    query row is owned) is copied out of the tp-sharded planes on the
+    device, counted per shard (one K2 launch each), wrapped to uint16 and
+    compacted per shard to top-k with global gids
+    (ShardedIndex.selfjoin_block); only survivors come to the host. A
+    block in which any shard's row reached its cap is re-fetched dense as
+    a whole block. Blocks are fetched ahead on a thread (_run_ahead); rows
+    are written by the parallel formatter, as the single-device sweeps
+    write them. Returns the sweep's stats (blocks, tp, seconds waiting and
+    emitting, total seconds, dense block re-fetches), or False where the
+    mesh index does not route the planes kernel (callers take the dense
+    loop). NIQKI_TPU_MATRIX_STATS prints them as the ``mesh sweep:``
+    line."""
+    p = index.params
+    sharded = index._sharded_for(mesh)
+    if sharded._kernel != "planes":
+        return False
+    G, Gp = index.G, sharded._Gp
+    B = min(bcount.MATRIX_BLOCK, Gp)
+    cap = min(Gp, int(os.environ.get("NIQKI_TPU_MATRIX_CAP", "1024")))
+    sparse = p.min_score > 0
+    starts = _block_starts(G, Gp, B)
+    refetch = 0
+
+    def fetch(i):
+        start = starts[i][1]
+        if not sparse:
+            return sharded.selfjoin_block(start, B, None, 0)
+        return sharded.selfjoin_block(start, B, cap, p.min_score)
+
+    def emit(i, res):
+        nonlocal refetch
+        lo, start, off, n = starts[i]
+        if not sparse:
+            pfmt.write_dense(out, res[off:off + n, :G], lo)
+            return
+        vals, gids, shard_cap = res
+        vals, gids = vals[off:off + n], gids[off:off + n]
+        tp = vals.shape[1] // shard_cap
+        if shard_cap < Gp // tp and \
+                (vals.reshape(n, tp, shard_cap)[:, :, -1]
+                 >= p.min_score).any():
+            # a shard's row reached its cap: the block comes dense
+            refetch += 1
+            c = sharded.selfjoin_block(start, B, None, 0)
+            pfmt.write_dense(out, c[off:off + n, :G], lo)
+        else:
+            pfmt.write_sparse(out, vals, gids, lo)
+
+    pfmt = _ParallelMatrixFmt(index.names, p.F, p.min_score)
+    t_start = time.time()
+    try:
+        run = _run_ahead(len(starts), lambda i: i, fetch, emit)
+    finally:
+        pfmt.close()
+    stats = {"blocks": len(starts), "tp": sharded._tp, "wait": run["wait"],
+             "emit": run["emit"], "refetch": refetch,
+             "total": time.time() - t_start}
+    if os.environ.get("NIQKI_TPU_MATRIX_STATS"):
+        print(f"mesh sweep: blocks={len(starts)} tp={sharded._tp} "
+              f"total {stats['total']:.1f}s "
+              f"device-wait {stats['wait']:.1f}s emit {stats['emit']:.1f}s "
+              f"dense re-fetches {refetch}",
+              file=sys.stderr, flush=True)
+    return stats
+
+
+def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter):
+    """The all-vs-all sweep over blocks of B index rows: under an active
+    mesh the mesh's full sweep; else the symmetric sweep for sparse
+    matrices unless NIQKI_TPU_MATRIX_SYM=off, else the full sweep, each
+    block against every column. Byte-identical with the dense loop of
+    ``query_matrix``. min_score == 0 always takes the full sweep: every
+    cell prints, so dense rows cross whatever the symmetry. Returns a
+    true value once the matrix is written, False where the mesh's index
+    is off the planes route (the dense loop serves)."""
+    mesh = active_mesh(index.device)
+    if mesh is not None:
+        return _query_matrix_selfjoin_mesh(index, out, mesh)
     if index.params.min_score > 0 and _sym_mode() != "off":
         _query_matrix_selfjoin_sym(index, out)
         return True
@@ -257,10 +347,7 @@ def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter) -> bool:
     fmt = native.MatrixFormatter(index.names, p.F, p.min_score)
     pfmt = _ParallelMatrixFmt(index.names, p.F, p.min_score)
 
-    starts = []
-    for lo in range(0, G, B):
-        start = max(0, min(lo, Gp - B))
-        starts.append((lo, start, lo - start, min(B - (lo - start), G - lo)))
+    starts = _block_starts(G, Gp, B)
 
     def dispatch(i):
         lo, start, off, n = starts[i]

@@ -14,7 +14,10 @@ card. Lines mode (a record per entry) sketches records over
 native sketcher; ``dump``/``load`` read and write the reference binary's
 dump format (``dumpfmt``), and ``save_sharded``/``load_sharded`` the JAX
 package's sharded checkpoints (v2 row blocks, v3 with bit-planes; v1 npz
-is read). The multi-device layouts are not ported yet.
+is read). Under an active mesh (``NIQKI_TPU_MESH``, ``parallel.auto``)
+the counts, the sparse hits and the sketch batches run on the mesh
+(``parallel.serving.ShardedIndex``, ``ops.sketch``), and ``load_sharded``
+with a mesh restarts mesh-direct.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from .io.fasta import read_records
 from .ops import bcount, mxucount, pcount
 from .ops.sketch import INT32_MAX, dispatch_sketch_packed_batch, pack_codes
 from .params import SketchParams
+from .parallel.auto import active_mesh
 
 # NIQKI_TPU_COUNT values the port routes
 COUNT_MODES = ("auto", "host", "bcount", "pcount", "xla", "mxu")
@@ -107,9 +111,11 @@ class SketchIndex:
         self.names: list[str] = []
         self._rows: list[np.ndarray] = []
         self._mat: np.ndarray | None = None  # consolidated (G, F)
+        self._mat_loader = None              # lazy loader (mesh-direct)
         self._device_mat = None              # (G, F) for the blocked count
         self._device_packed = None           # pair-packed (Gp, F/2) for K3
         self._device_planes = None           # bit-planes for K2
+        self._sharded = None                 # ShardedIndex on a mesh
         self._hits_fmt = None                # native HitsFormatter
         self._stored_host = None             # host count-side matrix
 
@@ -419,6 +425,10 @@ class SketchIndex:
         return len(self.names)
 
     def matrix(self) -> np.ndarray:
+        if self._mat is None and self._mat_loader is not None:
+            # a mesh-direct load keeps the host matrix lazy: serving needs
+            # only the shards' planes
+            self._mat, self._mat_loader = self._mat_loader(), None
         if self._mat is None or len(self._mat) != self.G:
             if self._rows:
                 prev = self._mat
@@ -507,11 +517,23 @@ class SketchIndex:
 
     # ------------------------------------------------------------------
     # querying
+    def _sharded_for(self, mesh):
+        """The ShardedIndex serving this index on ``mesh``, rebuilt when G
+        or the mesh changes (flipping NIQKI_TPU_MESH between calls must not
+        reuse a stale layout; active_mesh hands out one object per spec)."""
+        if self._sharded is None or self._sharded.G != self.G \
+                or self._sharded.mesh is not mesh:
+            from .parallel.serving import ShardedIndex
+            self._sharded = ShardedIndex(self, mesh)
+        return self._sharded
+
     def counts(self, q_sketches: np.ndarray) -> np.ndarray:
         """Hit counts (Q, G) for a batch of query sketches (Q, F).
 
-        Routes, as the JAX package's (NIQKI_TPU_COUNT = auto|host|bcount|
-        pcount|xla|mxu): the native host count for G <= NIQKI_TPU_HOST_COUNT_G
+        Under an active mesh the mesh's ShardedIndex counts, before any
+        other route. Otherwise the routes are the JAX package's
+        (NIQKI_TPU_COUNT = auto|host|bcount|pcount|xla|mxu): the native host
+        count for G <= NIQKI_TPU_HOST_COUNT_G
         (default 2048) under auto; the bit-plane kernel K2 for G >= 4096
         (or when asked) under its shape gate; the pair-packed kernel K3 for
         G >= 4096, W <= 14 and its shape gate (the S <= 11 indexes);
@@ -532,6 +554,9 @@ class SketchIndex:
         if mode not in COUNT_MODES:
             raise ValueError(f"NIQKI_TPU_COUNT={mode}: not one of "
                              f"{', '.join(COUNT_MODES)}")
+        mesh = active_mesh(self.device)
+        if mesh is not None:
+            return self._sharded_for(mesh).counts(self._query_side(raw))
         host_max_g = int(os.environ.get("NIQKI_TPU_HOST_COUNT_G", "2048"))
         if native.available() and (
                 mode == "host" or (mode == "auto" and self.G <= host_max_g)):
@@ -624,7 +649,11 @@ class SketchIndex:
         (count, gid) pairs come back. Byte-identical with
         HitsFormatter.format(counts(q), headers): rows whose survivors
         overflow the cap (NIQKI_TPU_HITS_CAP, default 2048) are re-fetched
-        dense. Returns None when not eligible (callers use dense counts)."""
+        dense. Under an active mesh the same contract is served by
+        per-shard top-k with global gids (ShardedIndex.topk_counts), ahead
+        of the G >= 4096 gate: a row overflows where any shard's last kept
+        count passes min_score. Returns None when not eligible (callers use
+        dense counts)."""
         p = self.params
         if (self.backend == "numpy" or not native.available()
                 or p.min_score < 1 or not bcount.available(p.F, p.W)):
@@ -633,12 +662,30 @@ class SketchIndex:
         if mode not in ("auto", "bcount"):
             return None
         cap = min(self.G, int(os.environ.get("NIQKI_TPU_HITS_CAP", "2048")))
-        if cap < 1 or self.G < 4096:
+        if cap < 1:
             return None
         raw = np.atleast_2d(np.asarray(q_sketches, np.int32))
         if len(raw) != len(headers):
             raise ValueError(f"{len(raw)} query sketches, {len(headers)} "
                              "headers")
+        mesh = active_mesh(self.device)
+        if mesh is not None:
+            sharded = self._sharded_for(mesh)
+            q = self._query_side(raw)
+            res = sharded.topk_counts(q, cap, p.min_score)
+            if res is None:     # not the planes route: dense counts serve
+                return None
+            vals, gids, shard_cap = res
+            tp = vals.shape[1] // shard_cap
+            if shard_cap < sharded._Gp // tp:
+                over = (vals.reshape(len(q), tp, shard_cap)[:, :, -1]
+                        >= p.min_score).any(axis=1)
+            else:
+                over = np.zeros(len(q), bool)
+            return self._emit_sparse_rows(q, headers, vals, gids, over,
+                                          sharded.counts)
+        if self.G < 4096:
+            return None
         q = self._query_side(raw)
         xp = self._planes()
         vals, idx = bcount.match_counts_planes(
@@ -734,13 +781,27 @@ class SketchIndex:
 
     @classmethod
     def load_sharded(cls, directory: str, device="cuda",
-                     backend: str = "torch") -> "SketchIndex":
+                     backend: str = "torch", mesh=None) -> "SketchIndex":
         """The index of a sharded checkpoint (v1, v2 or v3; another format
         raises), on ``device``: params from the manifest (the -G stale
         constants included), the host matrix and names from the shards,
         read in parallel. No device copy is built here: the first count
-        builds planes or pairs on the card from the matrix (v3's planes
-        files serve the multi-device restart)."""
+        builds planes or pairs on the card from the matrix.
+
+        With ``mesh`` the serving path restarts mesh-direct: each 'tp'
+        shard's planes go straight to its devices
+        (ShardedIndex.from_checkpoint, no global host matrix), the index
+        is on the mesh's first device, and its host matrix stays lazy
+        (read only if matrix() or dump() is called)."""
+        if mesh is not None:
+            from .parallel.serving import ShardedIndex
+            sharded = ShardedIndex.from_checkpoint(directory, mesh)
+            idx = cls(sharded.params, device=mesh.first, backend=backend)
+            idx.names = list(sharded.names)
+            idx._sharded = sharded
+            idx._mat_loader = lambda: cls.load_sharded(
+                directory, device=mesh.first, backend=backend).matrix()
+            return idx
         with open(os.path.join(directory, "manifest.json")) as f:
             manifest = json.load(f)
         fmt = manifest.get("format")

@@ -162,12 +162,12 @@ def _i16_table(t: torch.Tensor) -> torch.Tensor:
     return torch.where(t == INT32_MAX, -1, t).to(torch.int16)
 
 
-def _batch_core(words, n_kmers, exc_idx, *, lF, K, W, H,
+def _codes_core(codes, eff_rc, n_kmers, *, lF, K, W, H,
                 mask_M=None, max_rem=None, to_i16=False):
-    """(B, F) sketch tables of a batch of packed records (INT32_MAX empty,
-    or int16 with -1 empty when ``to_i16``). The sort route (K1) serves
-    lF + Wb <= 30; wider keys take the scatter-min."""
-    codes, eff_rc = _unpack_codes(words, exc_idx)
+    """(B, F) sketch tables of a batch of 2-bit code rows (eff_fwd,
+    eff_rc) (B, P) uint8 with n_kmers (B,) valid windows each (INT32_MAX
+    empty, or int16 with -1 empty when ``to_i16``). The sort route (K1)
+    serves lF + Wb <= 30; wider keys take the scatter-min."""
     Wb = _fp_bits(W, H, mask_M, max_rem)
     if lF + Wb <= 30:
         keys = _keys_core(codes, eff_rc, n_kmers, lF=lF, K=K, W=W, H=H,
@@ -179,10 +179,19 @@ def _batch_core(words, n_kmers, exc_idx, *, lF, K, W, H,
     else:
         slot, fp = _slot_fp_core(codes, eff_rc, n_kmers, lF=lF, K=K, W=W,
                                  H=H, mask_M=mask_M, max_rem=max_rem)
-        out = torch.full((words.shape[0], 1 << lF), INT32_MAX,
-                         dtype=torch.int32, device=words.device)
+        out = torch.full((codes.shape[0], 1 << lF), INT32_MAX,
+                         dtype=torch.int32, device=codes.device)
         out.scatter_reduce_(1, slot, fp, reduce="amin")
     return _i16_table(out) if to_i16 else out
+
+
+def _batch_core(words, n_kmers, exc_idx, *, lF, K, W, H,
+                mask_M=None, max_rem=None, to_i16=False):
+    """(B, F) sketch tables of a batch of packed records (``_codes_core``
+    after unpacking the 2-bit wire)."""
+    codes, eff_rc = _unpack_codes(words, exc_idx)
+    return _codes_core(codes, eff_rc, n_kmers, lF=lF, K=K, W=W, H=H,
+                       mask_M=mask_M, max_rem=max_rem, to_i16=to_i16)
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +212,21 @@ def pack_codes(eff_fwd: np.ndarray, eff_rc: np.ndarray, K: int):
     return words, n, exc + np.int32(K - 1)
 
 
+def _mesh_batch(mesh, w, nk, ex, device, **kw):
+    """_batch_core with the record rows split over every mesh device in
+    ('dp', 'tp') order, one launch set per device (K1 on each where the
+    sort route serves); the tables are concatenated in device order on
+    ``device``. The rows divide evenly (the caller pads them)."""
+    devs = mesh.flat()
+    n = len(w) // len(devs)
+    outs = [_batch_core(torch.from_numpy(w[i * n:(i + 1) * n]).to(dev),
+                        torch.from_numpy(nk[i * n:(i + 1) * n]).to(dev),
+                        torch.from_numpy(ex[i * n:(i + 1) * n]).to(dev),
+                        **kw)
+            for i, dev in enumerate(devs)]
+    return torch.cat([o.to(device) for o in outs])
+
+
 def dispatch_sketch_packed_batch(records, p, device,
                                  max_elems: int = 1 << 27,
                                  min_pad: int = 1 << 14):
@@ -214,13 +238,21 @@ def dispatch_sketch_packed_batch(records, p, device,
     no k-mers are left out. Kernels launch asynchronously on a CUDA device.
 
     The row count is padded up to the {2^k, 3*2^(k-1)} grid, which caps
-    padded-row waste at 33% and keeps the set of batch shapes small."""
+    padded-row waste at 33% and keeps the set of batch shapes small. Under
+    an active mesh (``parallel.auto.active_mesh(device)``) each batch is
+    split over every mesh device (rows padded to 2 x the device count) and
+    the tables come back on ``device`` in row order."""
+    from ..parallel.auto import active_mesh
     groups: dict[int, list[int]] = {}
     for i, (_, n, _e) in enumerate(records):
         if n - p.K > 0:
             groups.setdefault(padded_size(n, min_pad), []).append(i)
     out = []
     to16 = _fp_bits(p.W, p.H, p.mask_M, p.maximal_remainder) <= 14
+    mesh = active_mesh(device)
+    row_align = 2 if mesh is None else 2 * mesh.size
+    kw = dict(lF=p.lF, K=p.K, W=p.W, H=p.H, mask_M=p.mask_M,
+              max_rem=p.maximal_remainder, to_i16=to16)
     for P, idxs in sorted(groups.items()):
         maxb = max(1, (max_elems // 4) // P)
         for lo in range(0, len(idxs), maxb):
@@ -229,7 +261,7 @@ def dispatch_sketch_packed_batch(records, p, device,
             Bp = 1 << (B - 1).bit_length()
             if B <= Bp // 4 * 3:
                 Bp = Bp // 4 * 3
-            Bp = -(-Bp // 2) * 2
+            Bp = -(-Bp // row_align) * row_align
             Pw = P // 16
             emax = max(len(records[i][2]) for i in chunk)
             E = max(8, 1 << (max(emax, 1) - 1).bit_length())
@@ -241,11 +273,13 @@ def dispatch_sketch_packed_batch(records, p, device,
                 w[row, :len(words)] = words
                 nk[row] = n - p.K
                 ex[row, :len(exc)] = exc
-            dev = _batch_core(
-                torch.from_numpy(w.view(np.int32)).to(device),
-                torch.from_numpy(nk).to(device),
-                torch.from_numpy(ex).to(device),
-                lF=p.lF, K=p.K, W=p.W, H=p.H, mask_M=p.mask_M,
-                max_rem=p.maximal_remainder, to_i16=to16)
+            if mesh is not None:
+                dev = _mesh_batch(mesh, w.view(np.int32), nk, ex, device,
+                                  **kw)
+            else:
+                dev = _batch_core(
+                    torch.from_numpy(w.view(np.int32)).to(device),
+                    torch.from_numpy(nk).to(device),
+                    torch.from_numpy(ex).to(device), **kw)
             out.append((chunk, dev))
     return out

@@ -465,3 +465,124 @@ def test_profiled_query_trace_names_k2(card, tmp_path, monkeypatch):
                  if e.get("cat") == "kernel"}
     assert any("bcount_kernel" in n for n in names), names
     assert any("radix_" in n for n in names), names
+
+
+# ---------------------------------------------------------------------------
+# the one-process mesh: shards on one card (NIQKI_TPU_VIRTUAL_DEVICES)
+
+@pytest.fixture
+def card_mesh(card, monkeypatch):
+    """A 2x4 mesh of eight virtual devices, all the one card."""
+    from niqki_tpu_torch.parallel.mesh import device_list, make_mesh
+    monkeypatch.setenv("NIQKI_TPU_VIRTUAL_DEVICES", "8")
+    return make_mesh(device_list("cuda"), dp=2, tp=4)
+
+
+def _s15_planes(card, G=4096, seed=15):
+    """(G, 2^15) stored fingerprints (W=12, clusters of 64 rows, 1% -2)
+    and their planes on the card."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, 4096, (G, 1 << 15), dtype=np.int32)
+    g[:64] = g[0]
+    g[rng.random(g.shape) < 0.01] = -2
+    gd = torch.from_numpy(g).to(card)
+    return g, bcount.pack_bitplanes(gd, W=12, query=False)
+
+
+@pytest.mark.parametrize("Q", [96, 768])
+def test_mesh_k2_per_shard_equals_unsharded(card, card_mesh, Q):
+    """K2 per shard at 2x4 (4 shards of 1024 rows, the dp slices of the
+    padded queries) equals one unsharded K2 at Q x 4096 (S=15), with one
+    launch per BLOCK_Q queries of each device; the self-join block (768
+    rows re-encoded from the shards) equals bcount._self_join_dense."""
+    from niqki_tpu_torch.parallel import sharded
+    g, xp = _s15_planes(card)
+    q = g[np.random.default_rng(1).choice(4096, Q, replace=False)]
+    q = np.where(q < 0, -3, q)
+    pad = -Q % (2 * bcount.BLOCK_Q)
+    qpad = np.vstack([q, np.full((pad, q.shape[1]), -3, np.int32)])
+    qp = bcount.pack_bitplanes(torch.from_numpy(qpad).to(card), W=12,
+                               query=True)
+    xs = sharded.shard_index(xp, card_mesh, axis=1)
+    assert xs.parts[1][2] is xs.parts[0][2]          # replicas: one tensor
+    kernels.reset_launches()
+    got = sharded.sharded_count_planes(card_mesh)(qp, xs)
+    assert kernels.LAUNCHES["bcount"] == 4 * (Q + pad) // bcount.BLOCK_Q
+    assert torch.equal(got[:Q], bcount._bcount_call(qp[:, :Q].contiguous(),
+                                                    xp))
+    if Q == 768:
+        kernels.reset_launches()
+        dense = sharded.sharded_selfjoin(card_mesh, B=768, cap=None)(
+            xs, 1000, 0)
+        assert kernels.LAUNCHES["bcount"] == 4
+        assert torch.equal(dense, bcount._self_join_dense(xp, 1000, B=768))
+
+
+def test_mesh_k3_per_shard_equals_unsharded(card, card_mesh):
+    """K3 per shard at 2x4 (S=10, 4096 queries, 4096 rows): one launch a
+    device, equal to one unsharded K3 call."""
+    from niqki_tpu_torch.parallel import sharded
+    rng = np.random.default_rng(10)
+    g = rng.integers(0, 4096, (4096, 1024)).astype(np.int16)
+    g[:64] = g[0]
+    g[rng.random(g.shape) < 0.01] = -2
+    q = g.copy()
+    q[rng.random(q.shape) < 0.05] = -3
+    gp = pcount.pack_rows(torch.from_numpy(g).to(card))
+    qp = pcount.pack_rows(torch.from_numpy(q).to(card))
+    kernels.reset_launches()
+    got = sharded.sharded_count_packed(card_mesh)(
+        qp, sharded.shard_index(gp, card_mesh))
+    assert kernels.LAUNCHES["pcount"] == 8
+    assert torch.equal(got, pcount._count_call(qp, gp))
+
+
+def test_mesh_sketch_dispatch_k1_per_device(card, card_mesh, monkeypatch):
+    """Under --mesh 2x4 on the card each sketch batch is split over the 8
+    devices, K1 once each; the sketches equal the single-device ones."""
+    import os
+    from niqki_tpu_torch import SketchIndex, SketchParams
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures")
+    paths = [f"{fix}/tiny{i}.fa" for i in (1, 2, 3)] + [f"{fix}/multi.fa"]
+    p = SketchParams(lF=12, K=21)
+    monkeypatch.setenv("NIQKI_TPU_MESH", "2x4")
+    kernels.reset_launches()
+    on = SketchIndex(p).sketch_files(paths)
+    k1 = kernels.LAUNCHES["psort"]
+    assert k1 > 0 and k1 % 8 == 0
+    monkeypatch.setenv("NIQKI_TPU_MESH", "off")
+    kernels.reset_launches()
+    off = SketchIndex(p).sketch_files(paths)
+    assert kernels.LAUNCHES["psort"] * 8 == k1
+    for a, b in zip(on, off):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["v3", "v2"])
+def test_mesh_from_checkpoint_counts_on_card(card, card_mesh, tmp_path,
+                                             kind):
+    """ShardedIndex.from_checkpoint on the card: the counts of 64 rows
+    equal the saved index's (K2 per shard)."""
+    from niqki_tpu_torch import SketchParams
+    from niqki_tpu_torch.parallel.serving import ShardedIndex
+    p = SketchParams(lF=12, min_fract=0.05)
+    idx = _random_index(p, 4200, seed=3)
+    q = idx.matrix()[::66].copy()
+    want = idx.counts(q)
+    ck = str(tmp_path / "ck")
+    idx.save_sharded(ck, num_shards=3, compress=kind == "v2",
+                     planes=kind == "v3")
+    srv = ShardedIndex.from_checkpoint(ck, card_mesh)
+    assert srv._planes.parts[0][0].device.type == "cuda"
+    kernels.reset_launches()
+    np.testing.assert_array_equal(srv.counts(q), want)
+    assert kernels.LAUNCHES["bcount"] == 8
+
+
+def test_dryrun_multichip_on_card(card, card_mesh):
+    """entry.dryrun_multichip(8) on eight virtual devices of the card."""
+    from niqki_tpu_torch.entry import dryrun_multichip
+    kernels.reset_launches()
+    dryrun_multichip(8)
+    assert kernels.LAUNCHES["bcount"] > 0 and kernels.LAUNCHES["psort"] > 0

@@ -123,12 +123,19 @@ def test_cli_matrix_matches_jax(tmp_path, monkeypatch, flags):
 
 
 @pytest.mark.parametrize("flag", [["--mesh", "2x4"], ["--load-sharded"]])
-def test_cli_refuses_unported_flags(flag, tmp_path, capsys):
-    """--mesh alone is refused; --load-sharded, refused before it was
-    ported, now runs (-M on a loaded checkpoint)."""
+def test_cli_refuses_unported_flags(flag, tmp_path, capsys, monkeypatch):
+    """No flag is refused any more: --mesh 2x4 (eight virtual CPU devices)
+    gives the golden -M bytes, those of the run without it and
+    niqki_tpu's; --load-sharded runs -M on a loaded checkpoint."""
     if flag == ["--mesh", "2x4"]:
-        assert cli.main(["-M", f"{FIXDIR}/fof_tiny.txt", *flag]) == 2
-        assert "not ported yet" in capsys.readouterr().err
+        monkeypatch.setenv("NIQKI_TPU_VIRTUAL_DEVICES", "8")
+        args = ["-M", f"{FIXDIR}/fof_tiny.txt", "-S", "16", "-K", "21",
+                "--device", "cpu"]
+        out, one = str(tmp_path / "m.gz"), str(tmp_path / "one.gz")
+        assert cli.main(args + [*flag, "-O", out]) == 0
+        assert "not ported yet" not in capsys.readouterr().err
+        assert cli.main(args + ["-O", one]) == 0
+        assert _gz(out) == _gz(one) == _gz(f"{FIXDIR}/matrix_s16_tiny.gz")
         return
     ck = str(tmp_path / "ck")
     out = str(tmp_path / "m.gz")
@@ -162,6 +169,11 @@ def run(args):                           # as `python -m niqki_tpu_torch.cli`
         assert e.code == 0, e.code
 
 run(["-M", fof, "-S", "16", "-K", "21", "-O", d + "/m.gz"])
+import os
+os.environ["NIQKI_TPU_VIRTUAL_DEVICES"] = "8"
+run(["-M", fof, "-S", "16", "-K", "21", "--mesh", "2x4", "-O",
+     d + "/mm.gz"])
+del os.environ["NIQKI_TPU_VIRTUAL_DEVICES"]
 run(["-I", fof, "-Q", qfof, "-S", "12", "-K", "21", "-J", "0.05",
      "-O", d + "/q.gz"])
 run(["-S", "5", "-i", multi, "-l", multi, "-O", d + "/l.gz"])
@@ -176,7 +188,9 @@ os.environ["NIQKI_TPU_COUNT"] = "mxu"
 run(["--load-sharded", d + "/ck", "-Q", qfof, "-O", d + "/mq.gz"])
 del os.environ["NIQKI_TPU_COUNT"]
 import niqki_tpu_torch.downloader
+import niqki_tpu_torch.entry
 import niqki_tpu_torch.ops.mxucount
+import niqki_tpu_torch.parallel.serving
 bad = [m for m in sys.modules
        if m == "niqki_tpu" or m.startswith("niqki_tpu.")]
 assert not bad, bad
@@ -187,12 +201,12 @@ print("OK", preloaded)
 
 
 def test_matrix_runs_with_jax_blocked(tmp_path):
-    """The port's -M, -I/-Q, -i/-l, -D then -L/-Q, and --save-sharded (with
-    --profile) then --load-sharded/-Q (also under NIQKI_TPU_COUNT=mxu)
-    import nothing of jax or niqki_tpu: a fresh CPU process whose import
+    """The port's -M (also under --mesh 2x4), -I/-Q, -i/-l, -D then -L/-Q,
+    and --save-sharded (with --profile) then --load-sharded/-Q (also under
+    NIQKI_TPU_COUNT=mxu) import nothing of jax or niqki_tpu: a fresh CPU process whose import
     system refuses jax runs them all to the golden bytes and to niqki_tpu's
-    bytes, imports the downloader, and ends with no niqki_tpu module
-    loaded."""
+    bytes, imports the downloader, the entry twins and the mesh serving,
+    and ends with no niqki_tpu module loaded."""
     qfof = tmp_path / "q.txt"
     qfof.write_text("".join(f"{FIXDIR}/{n}\n" for n in
                             ("tiny2.fa", "multi.fa", "tiny1.fa")))
@@ -206,6 +220,7 @@ def test_matrix_runs_with_jax_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "OK" in res.stdout
     assert _gz(tmp_path / "m.gz") == _gz(f"{FIXDIR}/matrix_s16_tiny.gz")
+    assert _gz(tmp_path / "mm.gz") == _gz(f"{FIXDIR}/matrix_s16_tiny.gz")
     assert _gz(tmp_path / "l.gz") == _gz(f"{FIXDIR}/lines_fa_s5.gz")
     assert _gz(tmp_path / "d.bin") == _gz(f"{FIXDIR}/dump_tiny_s8w10h3.bin")
     jout = tmp_path / "j.gz"
@@ -258,7 +273,9 @@ def test_chip_smoke_imports_only_the_port():
     sources = {os.path.relpath(path, REPO) for path in _port_sources()}
     assert {f"niqki_tpu_torch/{m}" for m in (
         "debug.py", "downloader.py", "ops/mxucount.py", "hostmem.py",
-        "index.py", "cli.py")} <= sources
+        "index.py", "cli.py", "entry.py", "ops/densify.py",
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/auto.py",
+        "parallel/sharded.py", "parallel/serving.py")} <= sources
     assert len(sources) > 10
 
 
