@@ -116,6 +116,19 @@ Phases (any failure raises and exits non-zero):
      device memory are printed. ShardedIndex.from_checkpoint of phase 13's
      v3 and v2 directories under 1x4 must give phase 13's counts of 96
      rows; the load seconds are printed.
+ 18. the multi-process mesh: two ranks (this script, --phase18-rank) that
+     init_distributed over gloo (NCCL takes one process per card), both on
+     cuda:0 with four virtual devices each, one global mesh of 8. At
+     G = 4096: an ingest at S=15 under 2x4 and at S=10 under 1x8, then
+     -M and -I/-Q under 1x8 and 2x4; each rank's bytes must equal phases
+     4-7's. Config 5 restarted from phase 13's v3 directory under 1x8
+     (each rank reads the planes files of its own shards): phase 13's
+     counts of 96 rows, then -M with phase 10's SHA-256, on each rank.
+     Each rank's K1/K2/K3 launches per path are checked where the layout
+     fixes them, every shard a rank holds goes through K2/K3 and the plain
+     version, K1 against torch.sort; each rank's walls, host seconds in
+     collectives and peak device memory are printed beside the
+     one-process twins' walls. A rank that fails or hangs fails the phase.
 
 Phase 2 also checks and times K1 at 512 x 2^16, the lines-mode shape of
 phase 8's 40-65 kb contigs, and K2 at two of phase 10's windows (block 0,
@@ -126,10 +139,10 @@ main-path shape, its launches in the run that gives it that shape (phase 4
 and 5 at S=15, 6 and 7 at S=10, 8 for K1 at 2^16, 10 for the config-5
 window) and in phases 8, 9 and 12 to 14 (launches_phase8, ...; K1 by row
 length), its error, times, bound and library time, then phase 13's
-checkpoint numbers, phase 14's and phase 15's, 16's and 17's (K1, K2 and
-K3 rows carry launches_phase16 and launches_phase17, with rows of their
-own at the per-device and per-shard shapes); the last line names the
-device. Without a CUDA device, or without the
+checkpoint numbers, phase 14's and phase 15's, 16's, 17's and 18's (K1,
+K2 and K3 rows carry launches_phase16, launches_phase17 and, per rank,
+launches_phase18, with rows of their own at the per-device and per-shard
+shapes); the last line names the device. Without a CUDA device, or without the
 port's package beside it, the script fails before printing either. It
 imports nothing of JAX and no module of the JAX package: the host-native
 reference comes through the port (``niqki_tpu_torch.native``,
@@ -162,6 +175,7 @@ T0 = time.time()
 # the boost clock behind the data sheet's 67 TFLOP/s of float32.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
+WALLS: dict = {}        # phase -> wall s of phases 4-7's CLI runs
 
 
 def log(msg: str) -> None:
@@ -936,6 +950,7 @@ def phase_matrix(d: str, fof: str, spy: "Spy", S_: int, phase: int):
     rc = cli.main(["-M", fof, "-S", str(S_), "-J", "0.05", "-O", out])
     launches = dict(kernels.LAUNCHES)
     wall = time.time() - t
+    WALLS[phase] = wall
     del os.environ["NIQKI_TPU_MATRIX_STATS"]
     require(rc == 0, "-M rc")
     idx = spy.index
@@ -986,6 +1001,7 @@ def phase_query(d: str, fof: str, qfof: str, hidx, spy: "Spy",
     rc = cli.main(["-I", fof, "-Q", qfof, "-S", str(p.lF), "-J", "0.05",
                    "-O", qout])
     wall = time.time() - t
+    WALLS[phase] = wall
     launches = dict(kernels.LAUNCHES)
     require(rc == 0, "-I/-Q rc")
     with open(qfof) as f:
@@ -1699,19 +1715,20 @@ def phase_mxu() -> dict:
 TP = 4          # the mesh's tp shards in phases 16 and 17
 
 
-def check_shards() -> dict:
-    """K2 and K3 at the per-shard shapes of phase 16's --mesh 2x4 (G = 4096
-    rows in 4 tp shards of 1024; each device counts its dp slice of the
-    queries) and of phase 17's 1x4 over config 5 (shards of 25,600 rows
-    at S=12), each shard on the card against the plain version, the
+def check_shards(tp: int = TP, dp: int = 2) -> dict:
+    """K2 and K3 at the per-shard shapes of a (dp, tp) mesh over G = 4096
+    rows (tp shards of G / tp rows; each device counts its dp slice of the
+    queries) and over config 5 (shards of G5 / tp rows at S=12): phase
+    16's --mesh 2x4 and phase 17's 1x4 with the defaults, phase 18's 1x8
+    with (8, 1). Each shard on the card against the plain version, the
     unsharded call's columns and F - cdist(p=0), timed like phase 2's
     rows, with the unsharded call's device_ms beside it
     (``whole_device_ms``)."""
     import torch
-    from niqki_tpu_torch.ops import bcount
+    from niqki_tpu_torch.ops import bcount, pcount
     out = {}
     g, gd, q, xp, qp = bcount_inputs(13)
-    B, Gs = bcount.MATRIX_BLOCK, G // TP
+    B, Gs = bcount.MATRIX_BLOCK, G // tp
     xf = gd.float()
     shapes = (("-M", bcount._planes_as_queries(xp, 0, B).contiguous(),
                g[:B]), ("-Q", qp, q))
@@ -1719,7 +1736,7 @@ def check_shards() -> dict:
         whole = bcount._bcount_call(qpl, xp)
         qf = torch.from_numpy(np.where(qsrc < 0, -3, qsrc)).cuda().float()
         err = 0
-        for t in range(TP):
+        for t in range(tp):
             xs = xp[:, t * Gs:(t + 1) * Gs].contiguous()
             got = bcount._bcount_call(qpl, xs)
             want = bcount._bcount_plain(qpl, xs)
@@ -1737,34 +1754,38 @@ def check_shards() -> dict:
             "whole_device_ms": device_ms(
                 lambda: bcount._bcount_call(qpl, xp))}
     del g, gd, xp, qp, xf
-    # config 5 under 1x4: a 25,600-row shard at S=12, rows 0-767 equal
-    W, F, Gs5 = 12, 4096, G5 // TP
+    # config 5: a G5 / tp-row shard at S=12, rows 0-767 equal; the sweep's
+    # block and the restart's 96 rows as queries
+    W, F, Gs5 = 12, 4096, G5 // tp
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
     g5 = torch.randint(0, 1 << W, (Gs5, F), dtype=torch.int16,
                        device="cuda", generator=gen)
     g5[:B] = g5[0]
     g5[torch.rand((Gs5, F), device="cuda", generator=gen) < 0.01] = -2
     xs = bcount.pack_bitplanes(g5, W=W, query=False)
-    qpl = bcount._planes_as_queries(xs, 0, B).contiguous()
-    got = bcount._bcount_call(qpl, xs)
-    want = bcount._bcount_plain(qpl, xs)
-    err = int((got - want).abs().max())
-    require(torch.equal(got, want),
-            "K2 per shard (config 5) differs from its plain version")
-    qf = torch.where(g5[:B] < 0, -3, g5[:B]).float()
-    require(torch.equal(cdist_counts(qf, g5.float()).to(torch.int32), got),
-            "F - cdist(p=0) differs from K2 per shard (config 5)")
-    out["K2 config-5 block"] = bcount_stats(qpl, xs, qf, g5.float(), err,
-                                            plain_reps=3)
-    del g5, xs, qpl, qf, got, want
-    # K3 at S=10: the -M call's dp slice (2048 of 4096 queries) and the
-    # -Q call's (64 of 96 padded to 128) against one shard
+    for key, n in (("K2 config-5 block", B), ("K2 config-5 -Q", NQ)):
+        qpl = bcount._planes_as_queries(xs, 0, n).contiguous()
+        got = bcount._bcount_call(qpl, xs)
+        want = bcount._bcount_plain(qpl, xs)
+        err = int((got - want).abs().max())
+        require(torch.equal(got, want),
+                f"{key} per shard differs from its plain version")
+        qf = torch.where(g5[:n] < 0, -3, g5[:n]).float()
+        require(torch.equal(cdist_counts(qf, g5.float()).to(torch.int32),
+                            got),
+                f"F - cdist(p=0) differs from {key} per shard")
+        out[key] = bcount_stats(qpl, xs, qf, g5.float(), err, plain_reps=3)
+        del qpl, qf, got, want
+    del g5, xs
+    # K3 at S=10: the -M call's dp slice (G / dp of the 4096 queries) and
+    # the -Q call's (96 padded to 64 * dp, a dp slice of it) against one
+    # shard
     qd, gd, qp, xp = pcount_inputs(G, 10, G)
-    from niqki_tpu_torch.ops import pcount
-    for path, n in (("-M", G // 2), ("-Q", 64)):
+    step = pcount.PC_BLOCK_Q * dp
+    for path, n in (("-M", G // dp), ("-Q", -(-NQ // step) * step // dp)):
         qn = qp[:n].contiguous()
         whole = pcount._count_call(qn, xp)
-        for t in range(1, TP):
+        for t in range(1, tp):
             got = pcount._count_call(qn, xp[t * Gs:(t + 1) * Gs])
             require(torch.equal(got, whole[:, t * Gs:(t + 1) * Gs]),
                     f"K3 per shard ({path}, shard {t}) differs from the "
@@ -1994,20 +2015,303 @@ def phase17_restarts(p13: dict, spy: "Spy") -> dict:
         del srv, got
         gc.collect()
         torch.cuda.empty_cache()
-        shutil.rmtree(ck)
+        if tag == "v2":         # phase 18 restarts from v3, then removes it
+            shutil.rmtree(ck)
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the multi-process mesh, two gloo ranks on the one card
+
+RANKS, RANK_DEVICES = 2, 4      # phase 18: two ranks of 4 virtual devices
+RANK_TIMEOUT = 600              # seconds both ranks may take together
+
+
+def gloo_cuda_probe(rank: int) -> dict:
+    """Whether gloo takes CUDA tensors itself (the port's collectives stage
+    every gloo payload through the host and do not rely on it): an
+    all-reduce MIN and an all-gather of int32 tensors on cuda:0, the
+    result or the first line of the error. Both ranks make the same calls,
+    so both see the same outcome."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    x = torch.full((4,), rank + 1, dtype=torch.int32, device="cuda")
+    try:
+        dist.all_reduce(x, op=dist.ReduceOp.MIN)
+        out["all_reduce_min"] = "ok" if bool((x == 1).all()) else "wrong"
+    except RuntimeError as e:
+        out["all_reduce_min"] = str(e).splitlines()[0][:200]
+    y = torch.full((4,), rank, dtype=torch.int32, device="cuda")
+    outs = [torch.empty_like(y) for _ in range(RANKS)]
+    try:
+        dist.all_gather(outs, y)
+        out["all_gather"] = "ok" if all(
+            bool((o == r).all()) for r, o in enumerate(outs)) else "wrong"
+    except RuntimeError as e:
+        out["all_gather"] = str(e).splitlines()[0][:200]
+    return out
+
+
+def hold_shards(srv, rows=None, n_q: int = NQ) -> dict:
+    """Every shard this rank holds of ``srv`` (a ShardedIndex) through its
+    kernel and its plain version at the shapes the rank launched, exactly:
+    K2 at a MATRIX_BLOCK of the shard's stored rows as queries (the
+    sweep's block) and at ``n_q`` of them (a -Q block); K3 at ``rows``
+    (int16 queries: a dp slice of the index, the -M call's) and at the
+    first ``n_q`` of them (a -Q call's dp slice). Returns the calls held
+    by shape and the largest error."""
+    import torch
+    from niqki_tpu_torch.ops import bcount, pcount
+    held, err = {}, 0
+    shards = srv._planes if srv._kernel == "planes" else srv._mat
+    seen = set()
+    for xs in (x for row in shards.parts for x in row if x is not None):
+        if xs.data_ptr() in seen:
+            continue
+        seen.add(xs.data_ptr())
+        if srv._kernel == "planes":
+            B, Gs = bcount.MATRIX_BLOCK, xs.shape[1]
+            rows = xs.repeat(1, -(-B // Gs), 1)[:, :B]
+            P = rows.shape[0]
+            qp = torch.cat([rows[:P - 1] | rows[P - 1:], rows[P - 1:]])
+            calls = [(qp[:, :n].contiguous(), bcount._bcount_call,
+                      bcount._bcount_plain) for n in (B, n_q)]
+        else:
+            q = pcount.pack_rows(torch.from_numpy(rows).to(xs.device))
+            calls = [(q[:n].contiguous(), pcount._count_call,
+                      pcount._count_plain) for n in (len(rows), n_q)]
+        for qx, kernel, plain in calls:
+            got, want = kernel(qx, xs), plain(qx, xs)
+            err = max(err, int((got - want).abs().max()))
+            require(torch.equal(got, want), f"{kernel.__name__} per shard "
+                    f"at {tuple(qx.shape)} x {tuple(xs.shape)} differs from "
+                    "its plain version")
+            shape = f"{tuple(qx.shape)} x {tuple(xs.shape)}"
+            held[shape] = held.get(shape, 0) + 1
+    return {"held": held, "max_abs_err": err}
+
+
+def phase18_rank(rank: int, port: int, d: str) -> int:
+    """One of phase 18's ranks (``chip_smoke.py --phase18-rank R PORT
+    DIR``): init_distributed over gloo, four virtual devices of cuda:0,
+    then the API on one global mesh of 8. Each path runs with the launch
+    counts, the Spy and the collective stats set to 0 just before it and
+    read just after; its outputs go to DIR for the parent to check; the
+    rank's numbers go to DIR/phase18_rank{R}.json."""
+    os.environ["NIQKI_TPU_VIRTUAL_DEVICES"] = str(RANK_DEVICES)
+    import torch
+    from niqki_tpu_torch import SketchIndex, SketchParams, engine, kernels
+    from niqki_tpu_torch.io.writers import GzTextWriter
+    from niqki_tpu_torch.ops import pcount, psort
+    from niqki_tpu_torch.parallel import collective
+    from niqki_tpu_torch.parallel.auto import active_mesh
+    from niqki_tpu_torch.parallel.serving import init_distributed
+    with open(os.path.join(d, "phase18.json")) as f:
+        cfg = json.load(f)
+    init_distributed(f"127.0.0.1:{port}", RANKS, rank, backend="gloo")
+    res = {"rank": rank, "probe": gloo_cuda_probe(rank), "paths": {},
+           "held": {}}
+    spy = Spy()
+
+    def run(tag, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        spy.reset()
+        kernels.reset_launches()
+        collective.reset_stats()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = dict(kernels.LAUNCHES)
+        res["paths"][tag] = {
+            "wall_s": wall, "launches": launches,
+            "shapes": {f"{k}|{shp}": n for (k, shp), n in
+                       spied_shapes(spy, launches).items()},
+            "collectives": dict(collective.STATS),
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "sweep": spy.mesh_stats}
+        log(f"phase 18 rank {rank}: {tag} {res['paths'][tag]}")
+        return out
+
+    def write(tag, fn):
+        path = os.path.join(d, f"r{rank}_{tag}.gz")
+        with GzTextWriter(path) as out:
+            fn(out)
+
+    try:
+        for S_, lay0 in ((15, "2x4"), (10, "1x8")):
+            os.environ["NIQKI_TPU_MESH"] = lay0
+            idx = SketchIndex(SketchParams(lF=S_, min_fract=0.05))
+            run(f"ingest S={S_} {lay0}",
+                lambda: engine.insert_fof_whole(idx, cfg["fof"]))
+            for lay in ("1x8", "2x4"):
+                os.environ["NIQKI_TPU_MESH"] = lay
+                run(f"-M S={S_} {lay}", lambda: write(
+                    f"m{S_}_{lay}", lambda out: engine.query_matrix(idx,
+                                                                    out)))
+                run(f"-Q S={S_} {lay}", lambda: write(
+                    f"q{S_}_{lay}", lambda out: engine.query_fof_whole(
+                        idx, cfg["qfof"], out)))
+                srv = idx._sharded
+                step = pcount.PC_BLOCK_Q * srv._dp      # -Q's K3 padding
+                res["held"][f"S={S_} {lay}"] = hold_shards(
+                    srv, idx._stored()[:G // srv._dp].astype(np.int16),
+                    n_q=NQ if S_ == 15 else -(-NQ // step) * step // srv._dp)
+            del idx, srv
+        # config 5: the mesh-direct restart under 1x8, then -M
+        os.environ["NIQKI_TPU_MESH"] = "1x8"
+        mesh = active_mesh("cuda")
+        q5 = np.load(os.path.join(d, "phase18_q5.npz"))
+        idx5 = run("restart config 5 1x8", lambda: SketchIndex.load_sharded(
+            cfg["ck5"], mesh=mesh))
+        got = run("counts config 5 1x8", lambda: idx5.counts(q5["q"]))
+        require(np.array_equal(got, q5["want"]), f"rank {rank}: config-5 "
+                "counts after the 1x8 restart differ from phase 13's")
+        run("-M config 5 1x8", lambda: write(
+            "m5", lambda out: engine.query_matrix(idx5, out)))
+        res["held"]["config 5 1x8"] = hold_shards(idx5._sharded)
+        # K1 at a device's share of the ingest's 256-record batches
+        keys = record_keys(256 // (RANKS * RANK_DEVICES), LEN, 1 << 17,
+                           seed=rank)
+        require(torch.equal(psort.sort_i32_pow2_batch(keys),
+                            psort.sort_plain(keys)),
+                f"rank {rank}: K1 differs from torch.sort")
+        res["held"]["K1"] = {"held": {f"{tuple(keys.shape)}": 1},
+                             "max_abs_err": 0}
+        torch.distributed.barrier()
+    finally:
+        os.environ.pop("NIQKI_TPU_MESH", None)
+        spy.close()
+    with open(os.path.join(d, f"phase18_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multiprocess(d: str, fof: str, qfof: str, p13: dict, sha5: str,
+                       single: dict) -> dict:
+    """Phase 18: two ranks (phase18_rank) over gloo, both on cuda:0 with
+    four virtual devices each, one global mesh of 8: (a) at G = 4096 the
+    -M and -I/-Q of phases 4-7 under 1x8 and 2x4 (an ingest at S=15 under
+    2x4 and at S=10 under 1x8), each rank's bytes equal to phases 4-7's;
+    (b) config 5 restarted from phase 13's v3 directory under 1x8: phase
+    13's counts of 96 rows, then -M with phase 10's SHA-256, on each rank.
+    Every rank's launches per path are checked exactly where the layout
+    fixes them. A rank that fails or outlasts RANK_TIMEOUT fails the
+    phase; both are stopped. ``single``: phase 4's launches (``m15``) and
+    the one-process twins' walls (``walls``)."""
+    import shutil
+    import socket
+    np.savez(os.path.join(d, "phase18_q5.npz"), q=p13["q"], want=p13["want"])
+    with open(os.path.join(d, "phase18.json"), "w") as f:
+        json.dump({"fof": fof, "qfof": qfof, "ck5": p13["dirs"]["v3"]}, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [os.path.join(d, f"phase18_rank{r}.log") for r in range(RANKS)]
+    t = time.time()
+    procs = []
+    for r in range(RANKS):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase18-rank",
+                 str(r), str(port), d], stdout=f, stderr=subprocess.STDOUT))
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.time() - t > RANK_TIMEOUT:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.time() - t
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        with open(path, errors="replace") as f:
+            tail = f.read()[-3000:]
+        require(p.returncode == 0, f"phase 18 rank {r} exited "
+                f"{p.returncode} after {wall:.1f} s:\n{tail}")
+    ranks = []
+    for r in range(RANKS):
+        with open(os.path.join(d, f"phase18_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    # each rank's bytes
+    for S_ in (15, 10):
+        for lay in ("1x8", "2x4"):
+            for kind in ("m", "q"):
+                want = gz_bytes(os.path.join(d, f"{kind}{S_}.gz"))
+                for r in range(RANKS):
+                    path = os.path.join(d, f"r{r}_{kind}{S_}_{lay}.gz")
+                    require(gz_bytes(path) == want, f"phase 18 rank {r}: "
+                            f"{kind}{S_} under {lay} differs from "
+                            f"{kind}{S_}.gz")
+                    os.remove(path)
+    for r in range(RANKS):
+        path = os.path.join(d, f"r{r}_m5.gz")
+        got = sha256(path)
+        os.remove(path)
+        require(got == sha5, f"phase 18 rank {r}: config 5 -M after the 1x8 "
+                f"restart has sha256 {got}, phase 10's {sha5}")
+    shutil.rmtree(p13["dirs"]["v3"])
+    # launches per rank and path, where the layout fixes them
+    k1_single = single["m15"]["psort"]
+
+    def n(r, tag, k):
+        return ranks[r]["paths"][tag]["launches"][k]
+    for r in range(RANKS):
+        row0 = r == 0        # 2x4: dp row 0 (the sweep's) is rank 0's
+        want = {("ingest S=15 2x4", "psort"): RANK_DEVICES * k1_single,
+                ("-M S=15 1x8", "bcount"): 24,
+                ("-M S=15 2x4", "bcount"): 24 if row0 else 0,
+                ("-Q S=15 1x8", "bcount"): RANK_DEVICES,
+                ("-Q S=15 2x4", "bcount"): RANK_DEVICES,
+                ("-M S=10 1x8", "pcount"): RANK_DEVICES,
+                ("-M S=10 2x4", "pcount"): RANK_DEVICES,
+                ("-Q S=10 1x8", "pcount"): RANK_DEVICES,
+                ("-Q S=10 2x4", "pcount"): RANK_DEVICES,
+                ("counts config 5 1x8", "bcount"): RANK_DEVICES,
+                ("-M config 5 1x8", "bcount"): 134 * RANK_DEVICES}
+        for (tag, k), v in want.items():
+            require(n(r, tag, k) == v, f"phase 18 rank {r}: {tag} launched "
+                    f"{k} {n(r, tag, k)} times, not {v}")
+        for tag in ("ingest S=10 1x8", "-Q S=15 1x8", "-Q S=15 2x4",
+                    "-Q S=10 1x8", "-Q S=10 2x4"):
+            require(n(r, tag, "psort") > 0,
+                    f"phase 18 rank {r}: {tag} launched no K1")
+        st = ranks[r]["paths"]["-M config 5 1x8"]["sweep"]
+        require(st["blocks"] == 134 and st["refetch"] == 0,
+                f"phase 18 rank {r}: config-5 sweep {st}")
+    for r in range(RANKS):
+        for tag, e in ranks[r]["paths"].items():
+            log(f"phase 18 rank {r}: {tag}: wall {e['wall_s']:.2f} s, "
+                f"launches {e['launches']}, collectives "
+                f"{e['collectives']['calls']} calls "
+                f"{e['collectives']['bytes'] / 2**20:.1f} MiB sent "
+                f"{e['collectives']['seconds']:.2f} s, peak device "
+                f"{e['peak_device_gib']:.3f} GiB")
+        log(f"phase 18 rank {r}: kernels held per shard {ranks[r]['held']}; "
+            f"gloo with CUDA tensors: {ranks[r]['probe']}")
+    log(f"phase 18: two gloo ranks on cuda:0 in {wall:.1f} s; every rank's "
+        f"bytes == phases 4-7's under 1x8 and 2x4, config 5's counts == "
+        f"phase 13's and -M sha256 == phase 10's; one-process twins' walls: "
+        f"{single['walls']}")
+    return {"wall_s": wall, "ranks": ranks}
 
 
 def kernel_entry(name, source, replaces, launches, stats, mesh,
                  later=(0, 0), **extra):
     """One row of the kernels line; ``later`` holds the row's launches in
-    phases 8 and 9, ``mesh`` its launches in phases 16 and 17, each the
-    spy's count at the row's shape."""
+    phases 8 and 9, ``mesh`` its launches in phases 16 and 17 and, per
+    rank, in phase 18, each the spy's count at the row's shape."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "launches_phase8": later[0], "launches_phase9": later[1],
             "launches_phase16": mesh[0], "launches_phase17": mesh[1],
-            **stats, **extra}
+            "launches_phase18": mesh[2], **stats, **extra}
 
 
 def main() -> int:
@@ -2015,6 +2319,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--phase18-rank"]:
+        return phase18_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     from niqki_tpu_torch import kernels, native
 
     # ---- phase 1
@@ -2127,8 +2433,24 @@ def main() -> int:
                              p12.pop("ck_v3"), spy, {"m15": m15})
             p17 = phase_mesh_config5(d, c5["fa"], c5["full"]["sha256"], p13,
                                      spy)
+            # ---- phase 18
+            twins = {"phase 4 -M -S 15": WALLS[4], "phase 5 -I/-Q -S 15":
+                     WALLS[5], "phase 6 -M -S 10": WALLS[6],
+                     "phase 7 -I/-Q -S 10": WALLS[7],
+                     "phase 16 (2x4)": {k: v["wall_s"] for k, v in p16.items()
+                                        if "wall_s" in v},
+                     "phase 17 -i/-M config 5 (1x4)": p17["wall_s"],
+                     "phase 13 v3 load": p13["v3"]["load_s"],
+                     "phase 17 v3 restart (1x4)": p17["v3"]["load_s"]}
+            p18 = phase_multiprocess(d, fof, qfof, p13,
+                                     c5["full"]["sha256"],
+                                     {"m15": m15, "walls": twins})
         finally:
             spy.close()
+    torch.cuda.empty_cache()
+    s18 = check_shards(8, 1)
+    for key, e in s18.items():
+        log(f"phase 18: {key} per shard at 1x8 {e}")
     k1_dev = check_psort(32, LEN, 1 << 17)
     log(f"phase 16: K1 psort per device (32 x 2^17) {k1_dev}")
     # -i/-l's most launched shapes a device (phase 16's launches by shape)
@@ -2153,11 +2475,21 @@ def main() -> int:
         if "shapes" in r:
             add_shapes(sh16, r["shapes"])
     sh17 = add_shapes(dict(p17["shapes"]), p17["restart_shapes"])
-    log(f"phases 16-17: launches by shape {sh16} / {sh17}")
+    # phase 18 by (kernel, shape) on each rank: every path of the rank
+    sh18 = [{} for _ in range(RANKS)]
+    for r, rk in enumerate(p18["ranks"]):
+        for e in rk["paths"].values():
+            add_shapes(sh18[r], {tuple(k.split("|", 1)): v
+                                 for k, v in e["shapes"].items()})
+    log(f"phases 16-18: launches by shape {sh16} / {sh17} / {sh18}")
 
     def mesh(kernel, stats):
         key = (kernel, stats["shape"])
-        return sh16.get(key, 0), sh17.get(key, 0)
+        return sh16.get(key, 0), sh17.get(key, 0), {
+            f"rank{r}": sh18[r].get(key, 0) for r in range(RANKS)}
+
+    def in18(kernel, stats):
+        return sum(mesh(kernel, stats)[2].values())
 
     def in16(tag, kernel, stats):
         return p16[tag]["shapes"].get((kernel, stats["shape"]), 0)
@@ -2303,6 +2635,41 @@ def main() -> int:
                      launches_from="phase 16, -I/-Q -S 10 on 2x4: 96 "
                      "queries padded to 128, 64 a device (launches_phase16: "
                      "every phase 16 run at this shape)"),
+        kernel_entry("bcount _bcount_call (K2, per shard at --mesh 1x4 over "
+                     "config 5, the restart's counts: 96 x 25,600 x 128 "
+                     "lanes, P=13)", *k2_src,
+                     sh17.get(("bcount", sh["K2 config-5 -Q"]["shape"]), 0),
+                     sh["K2 config-5 -Q"],
+                     mesh("bcount", sh["K2 config-5 -Q"]),
+                     launches_from="phase 17, the v3 and v2 restarts' "
+                     "counts of 96 rows: one launch a shard each"),
+        *[kernel_entry(f"{kname} (K{k}, per shard at 1x8 over two gloo "
+                       f"ranks, {what})", *src, in18(kernel, s18[key]),
+                       s18[key], mesh(kernel, s18[key]),
+                       launches_from=f"phase 18, {where} (launches: both "
+                       "ranks; launches_phase18: each rank)")
+          for kname, k, kernel, src, key, what, where in (
+              ("bcount _bcount_call", 2, "bcount", k2_src, "K2 -M",
+               "-M block: 768 x 512 x 1024 lanes, P=13",
+               "-M -S 15 under 1x8: 6 blocks x 4 shards a rank"),
+              ("bcount _bcount_call", 2, "bcount", k2_src, "K2 -Q",
+               "-Q: 96 x 512 x 1024 lanes, P=13",
+               "-I/-Q -S 15 under 1x8: one 96-query block a device"),
+              ("bcount _bcount_call", 2, "bcount", k2_src,
+               "K2 config-5 block",
+               "config 5's block: 768 x 12,800 x 128 lanes, P=13",
+               "-M of config 5 restarted under 1x8: 134 blocks x 4 "
+               "shards a rank"),
+              ("bcount _bcount_call", 2, "bcount", k2_src, "K2 config-5 -Q",
+               "config 5's restart counts: 96 x 12,800 x 128 lanes, P=13",
+               "the counts of 96 rows after the 1x8 restart"),
+              ("pcount _count_call", 3, "pcount", k3_src, "K3 -M",
+               "-M S=10: 4096 x 512 x 512 lanes",
+               "-M -S 10 under 1x8: one launch a device"),
+              ("pcount _count_call", 3, "pcount", k3_src, "K3 -Q",
+               "-Q S=10: 128 x 512 x 512 lanes",
+               "-I/-Q -S 10 under 1x8: 96 queries padded to 128, one "
+               "launch a device"))],
     ], "build_s": build_s, "card": smi,
         "checkpoints_config5": {k: p13[k] for k in ("v3", "v2", "pack_s",
                                                       "planes_s")},
@@ -2318,9 +2685,19 @@ def main() -> int:
         "mesh_config5_phase17": {k: p17[k] for k in (
             "wall_s", "times", "sweep", "peak_device_gib", "launches",
             "v3", "v2")},
+        "multiprocess_phase18": {
+            "wall_s": p18["wall_s"], "one_process_walls": twins,
+            "gloo_cuda_probe": p18["ranks"][0]["probe"],
+            "ranks": [{tag: {k: e[k] for k in ("wall_s", "launches",
+                                                 "collectives",
+                                                 "peak_device_gib")}
+                       for tag, e in rk["paths"].items()}
+                      for rk in p18["ranks"]]},
         "launches_by_shape": {
             "phase16": {f"{k} {shp}": n for (k, shp), n in sh16.items()},
-            "phase17": {f"{k} {shp}": n for (k, shp), n in sh17.items()}}}))
+            "phase17": {f"{k} {shp}": n for (k, shp), n in sh17.items()},
+            "phase18": [{f"{k} {shp}": n for (k, shp), n in part.items()}
+                        for part in sh18]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -106,7 +106,7 @@ USAGE = """
   --save-sharded/--load-sharded <dir>, --shards <n>
                                 Native sharded checkpoint format.
   --profile <dir>               Write a torch.profiler trace of the run.
-  --mesh <DxT|auto|off>         Device mesh (NIQKI_TPU_MESH; one process).
+  --mesh <DxT|auto|off>         Device mesh (NIQKI_TPU_MESH).
 """
 
 
@@ -190,11 +190,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device to run on (default cuda; raises without a "
                         "card).")
     x.add_argument("--mesh", metavar="<DxT|auto|off>",
-                   help="Device mesh of one process: 'auto' (default; "
-                        "('dp','tp') over all cards when more than one), "
-                        "an explicit shape like '2x4' (over "
-                        "NIQKI_TPU_VIRTUAL_DEVICES entries where set), or "
-                        "'off'.")
+                   help="Device mesh: 'auto' (default; ('dp','tp') over "
+                        "all cards when more than one), an explicit shape "
+                        "like '2x4' (over NIQKI_TPU_VIRTUAL_DEVICES entries "
+                        "where set), or 'off'. It spans every rank of a "
+                        "torch.distributed group its caller initialized "
+                        "(parallel.serving.init_distributed).")
     x.add_argument("--profile", metavar="<dir>",
                    help="Write a torch.profiler trace (Chrome/TensorBoard "
                         "*.pt.trace.json) of the run to this directory.")

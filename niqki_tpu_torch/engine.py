@@ -78,7 +78,10 @@ def query_fof_whole(index: SketchIndex, fof_path: str, out: GzTextWriter,
     """-Q: each fof entry (resolved from the CWD) is sketched whole and
     queried. Chunk i+1 sketches on a thread while chunk i counts and
     formats; rows stream in fof order. Pretty rows take the sparse K2
-    top-k route when the index is eligible, else dense counts."""
+    top-k route when the index is eligible, else dense counts. On a mesh
+    across processes, where sketching and counting both call
+    collectives, which every rank must call in one order, the chunks
+    sketch and count in turn on this thread."""
     lines = [ln for ln in read_query_fof(fof_path) if exists(ln)]
     chunks = [lines[lo:lo + batch] for lo in range(0, len(lines), batch)]
 
@@ -97,6 +100,11 @@ def query_fof_whole(index: SketchIndex, fof_path: str, out: GzTextWriter,
             else:
                 write_binary_hits(out, name, hits)
 
+    mesh = active_mesh(index.device)
+    if mesh is not None and mesh.multi_process:
+        for chunk in chunks:
+            process(chunk, index.sketch_files(chunk))
+        return
     with ThreadPoolExecutor(1) as pre:
         fut = pre.submit(index.sketch_files, chunks[0]) if chunks else None
         for i, chunk in enumerate(chunks):
@@ -261,13 +269,15 @@ def _query_matrix_selfjoin_mesh(index: SketchIndex, out: GzTextWriter,
     compacted per shard to top-k with global gids
     (ShardedIndex.selfjoin_block); only survivors come to the host. A
     block in which any shard's row reached its cap is re-fetched dense as
-    a whole block. Blocks are fetched ahead on a thread (_run_ahead); rows
-    are written by the parallel formatter, as the single-device sweeps
-    write them. Returns the sweep's stats (blocks, tp, seconds waiting and
-    emitting, total seconds, dense block re-fetches), or False where the
-    mesh index does not route the planes kernel (callers take the dense
-    loop). NIQKI_TPU_MATRIX_STATS prints them as the ``mesh sweep:``
-    line."""
+    a whole block. Blocks are fetched ahead on a thread (_run_ahead), the
+    dense re-fetches too, so that on a mesh across processes every
+    collective of the sweep is called from that one thread, in block
+    order; rows are written by the parallel formatter, as the
+    single-device sweeps write them. Returns the sweep's stats (blocks,
+    tp, seconds waiting and emitting, total seconds, dense block
+    re-fetches), or False where the mesh index does not route the planes
+    kernel (callers take the dense loop). NIQKI_TPU_MATRIX_STATS prints
+    them as the ``mesh sweep:`` line."""
     p = index.params
     sharded = index._sharded_for(mesh)
     if sharded._kernel != "planes":
@@ -280,29 +290,28 @@ def _query_matrix_selfjoin_mesh(index: SketchIndex, out: GzTextWriter,
     refetch = 0
 
     def fetch(i):
-        start = starts[i][1]
+        nonlocal refetch
+        _, start, off, n = starts[i]
         if not sparse:
             return sharded.selfjoin_block(start, B, None, 0)
-        return sharded.selfjoin_block(start, B, cap, p.min_score)
-
-    def emit(i, res):
-        nonlocal refetch
-        lo, start, off, n = starts[i]
-        if not sparse:
-            pfmt.write_dense(out, res[off:off + n, :G], lo)
-            return
-        vals, gids, shard_cap = res
-        vals, gids = vals[off:off + n], gids[off:off + n]
+        res = sharded.selfjoin_block(start, B, cap, p.min_score)
+        vals, shard_cap = res[0][off:off + n], res[2]
         tp = vals.shape[1] // shard_cap
         if shard_cap < Gp // tp and \
                 (vals.reshape(n, tp, shard_cap)[:, :, -1]
                  >= p.min_score).any():
             # a shard's row reached its cap: the block comes dense
             refetch += 1
-            c = sharded.selfjoin_block(start, B, None, 0)
-            pfmt.write_dense(out, c[off:off + n, :G], lo)
+            return sharded.selfjoin_block(start, B, None, 0)
+        return res
+
+    def emit(i, res):
+        lo, _, off, n = starts[i]
+        if isinstance(res, np.ndarray):
+            pfmt.write_dense(out, res[off:off + n, :G], lo)
         else:
-            pfmt.write_sparse(out, vals, gids, lo)
+            pfmt.write_sparse(out, res[0][off:off + n], res[1][off:off + n],
+                              lo)
 
     pfmt = _ParallelMatrixFmt(index.names, p.F, p.min_score)
     t_start = time.time()

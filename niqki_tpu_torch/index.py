@@ -791,16 +791,18 @@ class SketchIndex:
         With ``mesh`` the serving path restarts mesh-direct: each 'tp'
         shard's planes go straight to its devices
         (ShardedIndex.from_checkpoint, no global host matrix), the index
-        is on the mesh's first device, and its host matrix stays lazy
-        (read only if matrix() or dump() is called)."""
+        is on this rank's first mesh device, and its host matrix stays
+        lazy (read only if matrix() or dump() is called)."""
         if mesh is not None:
             from .parallel.serving import ShardedIndex
             sharded = ShardedIndex.from_checkpoint(directory, mesh)
-            idx = cls(sharded.params, device=mesh.first, backend=backend)
+            idx = cls(sharded.params, device=mesh.first_local,
+                      backend=backend)
             idx.names = list(sharded.names)
             idx._sharded = sharded
             idx._mat_loader = lambda: cls.load_sharded(
-                directory, device=mesh.first, backend=backend).matrix()
+                directory, device=mesh.first_local,
+                backend=backend).matrix()
             return idx
         with open(os.path.join(directory, "manifest.json")) as f:
             manifest = json.load(f)

@@ -216,15 +216,23 @@ def _mesh_batch(mesh, w, nk, ex, device, **kw):
     """_batch_core with the record rows split over every mesh device in
     ('dp', 'tp') order, one launch set per device (K1 on each where the
     sort route serves); the tables are concatenated in device order on
-    ``device``. The rows divide evenly (the caller pads them)."""
-    devs = mesh.flat()
-    n = len(w) // len(devs)
-    outs = [_batch_core(torch.from_numpy(w[i * n:(i + 1) * n]).to(dev),
-                        torch.from_numpy(nk[i * n:(i + 1) * n]).to(dev),
-                        torch.from_numpy(ex[i * n:(i + 1) * n]).to(dev),
-                        **kw)
-            for i, dev in enumerate(devs)]
-    return torch.cat([o.to(device) for o in outs])
+    ``device``. The rows divide evenly (the caller pads them). On a mesh
+    across processes each rank sketches the rows of its own devices, and
+    the tables are all-gathered in device order."""
+    from ..parallel.collective import exchange
+    n = len(w) // mesh.size
+    cells = [c for c, _ in mesh.cells()]
+    local = {}
+    for i, (c, dev) in enumerate(mesh.cells()):
+        if mesh.is_local(*c):
+            local[c] = _batch_core(
+                torch.from_numpy(w[i * n:(i + 1) * n]).to(dev),
+                torch.from_numpy(nk[i * n:(i + 1) * n]).to(dev),
+                torch.from_numpy(ex[i * n:(i + 1) * n]).to(dev), **kw)
+    F = 1 << kw["lF"]
+    dtype = torch.int16 if kw["to_i16"] else torch.int32
+    return torch.cat(exchange(mesh, cells, local, lambda c: (n, F), dtype,
+                              device))
 
 
 def dispatch_sketch_packed_batch(records, p, device,

@@ -8,13 +8,17 @@ holds, K3 on pair-packed rows for W <= 14, a plain compare for small
 indexes. Counts equal the single-device path's by construction (sharding
 is a layout choice).
 
-One process only: the multi-process mesh (``init_distributed`` over
-torch.distributed, and the cross-process gather of results) is the next
-slice of the port and raises NotImplementedError here.
+Across processes: call ``init_distributed`` on every rank before building
+the mesh, then the same API; the mesh spans the ranks
+(``mesh.global_device_list``) and each rank holds and counts only the
+shards of its own devices. Every rank passes the same inputs and gets the
+whole result, as ``process_allgather(tiled=True)`` gives every JAX
+process, and must make the same calls in the same order.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import zlib
@@ -27,7 +31,8 @@ from .. import hostmem
 from ..index import SketchIndex, hits_from_counts
 from ..ops import bcount, pcount
 from ..params import SketchParams
-from .mesh import default_mesh_shape, device_list, make_mesh
+from .collective import all_gather_object
+from .mesh import default_mesh_shape, global_device_list, make_mesh
 from .sharded import (Sharded, sharded_count, sharded_count_packed,
                       sharded_count_planes, sharded_count_planes_topk,
                       sharded_selfjoin)
@@ -35,25 +40,46 @@ from .sharded import (Sharded, sharded_count, sharded_count_packed,
 KERNELS = ("planes", "packed", "dense")
 # queries whose bit-plane pack (int64 on the device) stays within 2^28 bytes
 _PACK_BYTES = 1 << 28
+BACKENDS = ("nccl", "gloo")
 
 
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> None:
-    """A no-op for one process. A multi-process mesh is not ported yet:
-    it raises NotImplementedError rather than run as one process."""
+                     process_id: int | None = None,
+                     backend: str | None = None) -> None:
+    """Join the torch.distributed group of a multi-process mesh; a no-op
+    for ``num_processes`` of None or <= 1, as the JAX package's.
+    ``coordinator`` is rank 0's "host:port" (JAX's coordinator address),
+    ``process_id`` this rank. ``backend`` is ``nccl`` (the default where
+    torch sees a card: one process per card, each seeing its own) or
+    ``gloo`` (the default on the CPU; it also carries ranks that share one
+    card, through the host). Another backend raises, and a failing one
+    is never swapped for the other."""
     if num_processes is None or num_processes <= 1:
         return
-    raise NotImplementedError(
-        "init_distributed: the multi-process mesh (torch.distributed, one "
-        "process per card) is not ported yet; this port runs one process "
-        "over all its mesh devices")
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    if coordinator is None or process_id is None:
+        raise ValueError("init_distributed: a multi-process mesh needs the "
+                         "coordinator's host:port and this process's id")
+    torch.distributed.init_process_group(
+        backend, init_method=f"tcp://{coordinator}",
+        world_size=num_processes, rank=process_id)
 
 
 def _default_mesh(kind: str):
-    devs = device_list(kind)
+    devs = global_device_list(kind)
     dp, tp = default_mesh_shape(len(devs))
     return make_mesh(devs, dp=dp, tp=tp)
+
+
+def _column_pieces(mesh, make) -> list:
+    """``make(t, device)`` for each tp column t on this rank's first device
+    of the column; None for columns with no device of this rank."""
+    return [None if (home := mesh.column_home(t)) is None else make(t, home)
+            for t in range(mesh.shape["tp"])]
 
 
 class ShardedIndex:
@@ -69,7 +95,8 @@ class ShardedIndex:
                  kernel: str | None = None):
         if mesh is None:
             mesh = _default_mesh(index.device.type)
-        self._setup(mesh, index.params, list(index.names), index.G)
+        mat = index._stored()      # empty slots already map to -2
+        self._setup(mesh, index.params, list(index.names), index.G, mat)
         p = self.params
         big = self.G >= 4096 or mesh.type == "cpu"
         planes_ok = bcount.available(p.F, p.W)
@@ -85,7 +112,6 @@ class ShardedIndex:
         tile = {"planes": bcount.TILE_G, "packed": pcount.TILE_G,
                 "dense": 1}[kernel]
         row_align = self._tp * tile
-        mat = index._stored()      # empty slots already map to -2
         pad_g = -self.G % row_align
         self._Gp = self.G + pad_g
         if pad_g:
@@ -96,30 +122,41 @@ class ShardedIndex:
             padded[self.G:] = -2
             mat = padded
         Gs = self._Gp // self._tp
-        devs = mesh.devices[0]
         if kernel == "planes":
-            pieces = [bcount.build_index_planes(
-                mat[t * Gs:(t + 1) * Gs], p.W, devs[t], sanitized=True)
-                for t in range(self._tp)]
+            pieces = _column_pieces(mesh, lambda t, dev: (
+                bcount.build_index_planes(mat[t * Gs:(t + 1) * Gs], p.W,
+                                          dev, sanitized=True)))
             self._planes = Sharded.from_pieces(mesh, pieces, axis=1)
         elif kernel == "packed":
-            pieces = [pcount.pack_rows(torch.from_numpy(hostmem.big_copy(
-                mat[t * Gs:(t + 1) * Gs], np.int16))).to(devs[t])
-                for t in range(self._tp)]
+            pieces = _column_pieces(mesh, lambda t, dev: pcount.pack_rows(
+                torch.from_numpy(hostmem.big_copy(
+                    mat[t * Gs:(t + 1) * Gs], np.int16))).to(dev))
             self._mat = Sharded.from_pieces(mesh, pieces, axis=0)
         else:
-            pieces = [torch.from_numpy(np.ascontiguousarray(
-                mat[t * Gs:(t + 1) * Gs])).to(devs[t])
-                for t in range(self._tp)]
+            pieces = _column_pieces(mesh, lambda t, dev: torch.from_numpy(
+                np.ascontiguousarray(mat[t * Gs:(t + 1) * Gs])).to(dev))
             self._mat = Sharded.from_pieces(mesh, pieces, axis=0)
 
-    def _setup(self, mesh, params, names, G) -> None:
+    def _setup(self, mesh, params, names, G, mat=None) -> None:
+        """The fields every layout has. On a mesh across processes every
+        rank must hold the same index: a digest of params, names, G (and
+        ``mat``, where given) is all-gathered, and any difference raises
+        on every rank."""
         self.mesh = mesh
         self.params = params
         self.names = names
         self.G = G
         self._tp = mesh.shape["tp"]
         self._dp = mesh.shape["dp"]
+        if not mesh.multi_process:
+            return
+        h = hashlib.sha256(json.dumps([repr(params), names, G]).encode())
+        if mat is not None:
+            h.update(np.ascontiguousarray(mat).data)
+        digests = all_gather_object(h.hexdigest())
+        if len(set(digests)) != 1:
+            raise ValueError(f"the ranks hold different indexes (params, "
+                             f"names, G or rows): digests {digests}")
 
     @classmethod
     def from_checkpoint(cls, directory: str, mesh=None) -> "ShardedIndex":
@@ -130,7 +167,9 @@ class ShardedIndex:
         the planes files); v2 reads the needed rows (ranged reads, or one
         inflate per gzip shard) and packs them on the host
         (bcount.np_pack_bitplanes, the device pack's bits). Reads and packs
-        run on a thread pool. The default mesh is the card's."""
+        run on a thread pool. The default mesh is the card's. Across
+        processes a rank reads only the shard files that hold rows of its
+        own tp columns (every rank reads the names)."""
         with open(os.path.join(directory, "manifest.json")) as f:
             manifest = json.load(f)
         fmt = manifest.get("format")
@@ -197,8 +236,10 @@ class ShardedIndex:
                                              out=out[:, o_lo - a:o_hi - a])
                 tasks.append((pack_shard,))
 
-        host, tasks = [], []
+        host, tasks = [None] * self._tp, []
         for t in range(self._tp):
+            if mesh.column_home(t) is None:
+                continue
             a, b = t * Gs, (t + 1) * Gs
             out = hostmem.big_empty((W + 1, Gs, L), np.uint32)
             real = min(b, G)
@@ -208,7 +249,7 @@ class ShardedIndex:
                 pad = max(real, a) - a
                 out[:W, pad:] = 0
                 out[W, pad:] = 0xFFFFFFFF
-            host.append(out)
+            host[t] = out
         if len(tasks) <= 1:
             for task in tasks:
                 task[0](*task[1:])
@@ -216,21 +257,16 @@ class ShardedIndex:
             with ThreadPoolExecutor(min(8, max(2, os.cpu_count() or 2))) \
                     as ex:
                 list(ex.map(lambda task: task[0](*task[1:]), tasks))
-        pieces = [torch.from_numpy(h.view(np.int32)).to(dev)
-                  for h, dev in zip(host, mesh.devices[0])]
+        pieces = _column_pieces(mesh, lambda t, dev: torch.from_numpy(
+            host[t].view(np.int32)).to(dev))
         self._planes = Sharded.from_pieces(mesh, pieces, axis=1)
         return self
 
     @staticmethod
     def _to_host(arr: torch.Tensor) -> np.ndarray:
-        """A mesh result on the host: a plain copy in one process. The
-        cross-process gather of a multi-process mesh is not ported yet."""
-        if torch.distributed.is_available() \
-                and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "ShardedIndex._to_host: the cross-process gather of a "
-                "multi-process mesh is not ported yet")
+        """A mesh result on the host. Across processes every rank already
+        holds the whole result: the sharded functions' all-gathers are the
+        counterpart of the JAX package's process_allgather(tiled=True)."""
         return arr.cpu().numpy()
 
     def _pad_queries(self, q: np.ndarray, align: int) -> np.ndarray:
@@ -241,13 +277,13 @@ class ShardedIndex:
 
     def _plane_chunks(self, q: np.ndarray):
         """(lo, query planes) of the padded sanitized queries q, packed on
-        the mesh's first device in chunks of dp * BLOCK_Q multiples whose
+        this rank's first mesh device in chunks of dp * BLOCK_Q multiples whose
         int64 pack stays within _PACK_BYTES."""
         align = self._dp * bcount.BLOCK_Q
         n = max(align, _PACK_BYTES // (8 * q.shape[1]) // align * align)
         for lo in range(0, len(q), n):
             blk = torch.from_numpy(np.ascontiguousarray(q[lo:lo + n]))
-            yield lo, bcount.pack_bitplanes(blk.to(self.mesh.first),
+            yield lo, bcount.pack_bitplanes(blk.to(self.mesh.first_local),
                                             W=self.params.W, query=True)
 
     def topk_counts(self, q_sanitized: np.ndarray, cap: int,

@@ -14,6 +14,14 @@ on tensors with explicit devices and the shard loops in Python (no
   * EP  - a batch insert routes rows to the owning 'tp' shard after the dp
           slices are gathered; rows owned by another shard are dropped.
 
+On a mesh that spans processes (``mesh.multi_process``) every rank passes
+the same full host inputs, as the JAX package's multi-process callers do,
+and computes only the entries (d, t) it owns. The cross-shard steps become
+collectives (``parallel.collective``): the tp min over chunks an
+all-reduce MIN, the count blocks' assembly, the self-join's query rows and
+the ingest's gather of the dp slices all-gathers in (dp, tp) order, so
+every rank gets the whole result.
+
 Each shard counts with the port's own kernels: K2 (``bcount._bcount_call``)
 on bit-planes, K3 (``pcount._count_call``) on pair-packed rows, and the
 sketch sorts with K1 per device. On the CPU they take their plain
@@ -32,14 +40,16 @@ import torch
 
 from ..ops import bcount, pcount
 from ..ops.densify import densify_device
-from ..ops.sketch import EXC_PAD, _batch_core, _codes_core
+from ..ops.sketch import EXC_PAD, INT32_MAX, _batch_core, _codes_core
+from .collective import all_reduce_min, exchange
 
 
 class Sharded:
     """An array split over a mesh's 'tp' axis and held by every 'dp' row:
-    ``parts[d][t]`` is shard t on ``mesh.devices[d][t]``, split along
-    ``axis`` (0 for (G, F) rows, 1 for (P, G, L) bit-planes). The JAX
-    package's NamedSharding P('tp', None) and P(None, 'tp', None)."""
+    ``parts[d][t]`` is shard t on ``mesh.devices[d][t]`` where this rank
+    owns (d, t) and None elsewhere, split along ``axis`` (0 for (G, F)
+    rows, 1 for (P, G, L) bit-planes). The JAX package's NamedSharding
+    P('tp', None) and P(None, 'tp', None)."""
 
     def __init__(self, mesh, parts, axis: int):
         self.mesh = mesh
@@ -48,27 +58,56 @@ class Sharded:
 
     @classmethod
     def from_pieces(cls, mesh, pieces, axis: int) -> "Sharded":
-        """Piece t on every device (d, t). Where a device of column t is a
-        device an earlier row already holds piece t on (virtual devices),
-        the row takes that same tensor: the dp replicas are one tensor."""
+        """Piece t on every device (d, t) of this rank (``pieces[t]`` is
+        read only for columns where it owns one). Where a device of column
+        t is a device an earlier row already holds piece t on (virtual
+        devices), the row takes that same tensor: the dp replicas are one
+        tensor."""
         parts: list[list] = []
         for d, row in enumerate(mesh.devices):
             out = []
             for t, dev in enumerate(row):
+                if not mesh.is_local(d, t):
+                    out.append(None)
+                    continue
                 prev = next((parts[e][t] for e in range(d)
-                             if mesh.devices[e][t] == dev), None)
+                             if parts[e][t] is not None
+                             and mesh.devices[e][t] == dev), None)
                 out.append(prev if prev is not None else pieces[t].to(dev))
             parts.append(out)
         return cls(mesh, parts, axis)
 
+    def column(self, t: int) -> torch.Tensor:
+        """Shard t on this rank's first device of column t."""
+        return next(row[t] for row in self.parts if row[t] is not None)
+
+    @property
+    def shard_shape(self) -> tuple:
+        return tuple(next(x for row in self.parts for x in row
+                          if x is not None).shape)
+
     @property
     def rows_per_shard(self) -> int:
-        return int(self.parts[0][0].shape[self.axis])
+        return int(self.shard_shape[self.axis])
 
     def to_host(self) -> np.ndarray:
-        """The whole array on the host (shards of dp row 0)."""
-        return torch.cat([s.cpu() for s in self.parts[0]],
+        """The whole array on the host (dp row 0's shards, gathered from
+        their ranks)."""
+        row = [(0, t) for t in range(self.mesh.shape["tp"])]
+        local = {c: self.parts[0][c[1]] for c in row
+                 if self.parts[0][c[1]] is not None}
+        dtype = next(x for r in self.parts for x in r if x is not None).dtype
+        return torch.cat(exchange(self.mesh, row, local,
+                                  lambda c: self.shard_shape, dtype, "cpu"),
                          dim=self.axis).numpy()
+
+
+def _grid(mesh, fn) -> list[list]:
+    """``fn(d, t, device)`` for this rank's entries of the mesh, None for
+    the others', as a (dp, tp) grid."""
+    return [[fn(d, t, dev) if mesh.is_local(d, t) else None
+             for t, dev in enumerate(row)]
+            for d, row in enumerate(mesh.devices)]
 
 
 def _host_or_tensor(x) -> torch.Tensor:
@@ -165,21 +204,41 @@ def _split(mesh, Q: int, T: int) -> tuple[int, int]:
 
 
 def _merge_chunks(mesh, sketch_chunks, lF: int,
-                  densify: bool) -> list[torch.Tensor]:
+                  densify: bool) -> list:
     """The SP merge: device (d, t) sketches its chunks of dp slice d
     (``sketch_chunks(d, t, dev) -> (Qs, Ts, F)``), the min over its chunks
-    and then over the tp devices (the JAX package's pmin) lands on device
-    (d, 0), densified there. Returns the (Qs, F) tables per dp slice."""
-    merged = []
-    for d, row in enumerate(mesh.devices):
-        home = row[0]
-        local = [sketch_chunks(d, t, dev).amin(dim=1).to(home)
-                 for t, dev in enumerate(row)]
-        m = local[0]
-        for x in local[1:]:
-            m = torch.minimum(m, x)
-        merged.append(densify_device(m, lF=lF) if densify else m)
-    return merged
+    and then over the tp devices (the JAX package's pmin) lands on this
+    rank's first device of row d, densified there. Across ranks the min
+    over the tp devices is one all-reduce MIN of every dp slice, to which
+    a rank with no device in a row gives the identity, INT32_MAX (also
+    the empty slot). Returns the (Qs, F) tables per dp slice, None for a
+    slice with no device of this rank."""
+    merged = [None] * mesh.shape["dp"]
+    for (d, t), dev in mesh.local_cells():
+        x = sketch_chunks(d, t, dev).amin(dim=1).to(mesh.row_home(d))
+        merged[d] = x if merged[d] is None else torch.minimum(merged[d], x)
+    if mesh.multi_process:
+        part = next(m for m in merged if m is not None)
+        both = torch.full((len(merged), *part.shape), INT32_MAX,
+                          dtype=part.dtype, device=mesh.first_local)
+        for d, m in enumerate(merged):
+            if m is not None:
+                both[d] = m
+        both = all_reduce_min(both)
+        merged = [None if m is None else both[d].to(m.device)
+                  for d, m in enumerate(merged)]
+    return [densify_device(m, lF=lF) if densify and m is not None else m
+            for m in merged]
+
+
+def _gather_slices(mesh, merged) -> torch.Tensor:
+    """The dp slices' tables concatenated in dp order on this rank's first
+    device; slice d comes from the rank that owns device (d, 0)."""
+    part = next(m for m in merged if m is not None)
+    cells = [(d, 0) for d in range(len(merged))]
+    local = {c: merged[c[0]] for c in cells if mesh.is_local(*c)}
+    return torch.cat(exchange(mesh, cells, local, lambda c: part.shape,
+                              part.dtype, mesh.first_local))
 
 
 def _params_kw(p) -> dict:
@@ -209,26 +268,32 @@ def sharded_sketch_batch(p, mesh, densify: bool = True):
     """Returns fn sketching a batch of chunked sequences.
 
     fn(fwd (Q, T, C+K) u8, rc (Q, T, C+K) u8, n_valid (Q, T) i32) -> (Q, F)
-    int32 sketch tables on the mesh's first device (INT32_MAX empty;
+    int32 sketch tables on this rank's first device (INT32_MAX empty;
     densified if asked). Q splits on 'dp', the chunk axis T on 'tp'."""
 
     def fn(fwd, rc, nv):
-        merged = _merge_chunks(mesh, _code_chunks(mesh, p, fwd, rc, nv),
-                               p.lF, densify)
-        return torch.cat([m.to(mesh.first) for m in merged])
+        return _gather_slices(mesh, _merge_chunks(
+            mesh, _code_chunks(mesh, p, fwd, rc, nv), p.lF, densify))
 
     return fn
 
 
-def _assemble(mesh, blocks, Q: int, Gs: int):
-    """Count blocks ``blocks[d][t]`` (Q / len(blocks), Gs) into one
-    (Q, tp*Gs) int32 tensor on the mesh's first device."""
+def _assemble(mesh, blocks, Q: int, Gs: int, lead: tuple = ()):
+    """Count blocks ``blocks[d][t]`` (*lead, Q / len(blocks), Gs), None
+    where another rank owns (d, t), into one (*lead, Q, tp*Gs) int32
+    tensor on this rank's first device: on every rank, the blocks of every
+    rank."""
     tp = mesh.shape["tp"]
     Qs = Q // len(blocks)
-    out = torch.empty((Q, tp * Gs), dtype=torch.int32, device=mesh.first)
-    for d, row in enumerate(blocks):
-        for t, c in enumerate(row):
-            out[d * Qs:(d + 1) * Qs, t * Gs:(t + 1) * Gs] = c.to(mesh.first)
+    cells = [(d, t) for d in range(len(blocks)) for t in range(tp)]
+    local = {(d, t): blocks[d][t] for d, t in cells
+             if blocks[d][t] is not None}
+    out = torch.empty((*lead, Q, tp * Gs), dtype=torch.int32,
+                      device=mesh.first_local)
+    for (d, t), c in zip(cells, exchange(
+            mesh, cells, local, lambda c: (*lead, Qs, Gs), torch.int32,
+            mesh.first_local)):
+        out[..., d * Qs:(d + 1) * Qs, t * Gs:(t + 1) * Gs] = c
     return out
 
 
@@ -251,10 +316,8 @@ def sharded_count(mesh):
     def fn(q, index):
         q = _host_or_tensor(q)
         Qs = _dp_rows(mesh, q.shape[0])
-        blocks = [[_eq_counts(q[d * Qs:(d + 1) * Qs].to(dev),
-                              index.parts[d][t])
-                   for t, dev in enumerate(row)]
-                  for d, row in enumerate(mesh.devices)]
+        blocks = _grid(mesh, lambda d, t, dev: _eq_counts(
+            q[d * Qs:(d + 1) * Qs].to(dev), index.parts[d][t]))
         return _assemble(mesh, blocks, q.shape[0], index.rows_per_shard)
 
     return fn
@@ -280,9 +343,8 @@ def sharded_count_planes(mesh):
 
     def fn(qp, xp):
         Qs = _dp_rows(mesh, qp.shape[1])
-        blocks = [[_shard_planes_counts(qp, xp.parts[d][t], d * Qs, Qs, dev)
-                   for t, dev in enumerate(row)]
-                  for d, row in enumerate(mesh.devices)]
+        blocks = _grid(mesh, lambda d, t, dev: _shard_planes_counts(
+            qp, xp.parts[d][t], d * Qs, Qs, dev))
         return _assemble(mesh, blocks, qp.shape[1], xp.rows_per_shard)
 
     return fn
@@ -314,15 +376,15 @@ def sharded_count_planes_topk(mesh, *, cap: int, wrap16: bool = False):
         Q = qp.shape[1]
         Qs, Gs = _dp_rows(mesh, Q), xp.rows_per_shard
         k = min(cap, Gs)
-        vals = [[None] * mesh.shape["tp"] for _ in mesh.devices]
-        gids = [[None] * mesh.shape["tp"] for _ in mesh.devices]
-        for d, row in enumerate(mesh.devices):
-            for t, dev in enumerate(row):
-                c = _shard_planes_counts(qp, xp.parts[d][t], d * Qs, Qs, dev)
-                if wrap16:
-                    c = c & 0xFFFF
-                vals[d][t], gids[d][t] = _shard_topk(c, k, t, int(min_score))
-        return _assemble(mesh, vals, Q, k), _assemble(mesh, gids, Q, k)
+
+        def top(d, t, dev):
+            c = _shard_planes_counts(qp, xp.parts[d][t], d * Qs, Qs, dev)
+            if wrap16:
+                c = c & 0xFFFF
+            return torch.stack(_shard_topk(c, k, t, int(min_score)))
+
+        both = _assemble(mesh, _grid(mesh, top), Q, k, lead=(2,))
+        return both[0], both[1]
 
     return fn
 
@@ -339,34 +401,40 @@ def sharded_selfjoin(mesh, *, B: int, cap: int | None):
     Returns fn(xp Sharded (P, Gp, L), lo, min_score) ->
       cap set:  (vals, gids) each (B, tp*k) int32, k = min(cap, Gs)
       cap None: (B, Gp) int32 wrapped counts (min_score ignored)
-    on the mesh's first device. [lo, lo+B) must lie inside [0, Gp): every
-    query row must be owned, or a zero-filled plane row would alias
-    fingerprint 0."""
+    on this rank's first device. [lo, lo+B) must lie inside [0, Gp):
+    every query row must be owned, or a zero-filled plane row would alias
+    fingerprint 0. Across ranks the query rows are all-gathered from the
+    ranks owning their shards of dp row 0, and a rank with no device in
+    that row counts nothing."""
 
     def fn(xp, lo, min_score):
         lo = int(lo)
-        shards = xp.parts[0]
-        P, Gs, L = shards[0].shape
-        if lo < 0 or lo + B > Gs * len(shards):
+        tp = mesh.shape["tp"]
+        P, Gs, L = xp.shard_shape
+        if lo < 0 or lo + B > Gs * tp:
             raise ValueError(f"self-join rows [{lo}, {lo + B}) outside "
-                             f"[0, {Gs * len(shards)})")
-        qs = torch.empty((P, B, L), dtype=torch.int32, device=mesh.first)
-        for t, xs in enumerate(shards):
-            a, b = max(lo, t * Gs), min(lo + B, (t + 1) * Gs)
-            if b > a:
-                qs[:, a - lo:b - lo] = xs[:, a - t * Gs:b - t * Gs].to(
-                    mesh.first)
+                             f"[0, {Gs * tp})")
+        spans = {(0, t): (max(lo, t * Gs), min(lo + B, (t + 1) * Gs))
+                 for t in range(tp)}
+        cells = [c for c, (a, b) in spans.items() if b > a]
+        local = {c: xp.parts[0][c[1]][:, a - c[1] * Gs:b - c[1] * Gs]
+                 for c, (a, b) in spans.items()
+                 if c in cells and mesh.is_local(*c)}
+        qs = torch.cat(exchange(
+            mesh, cells, local,
+            lambda c: (P, spans[c][1] - spans[c][0], L), torch.int32,
+            mesh.first_local), dim=1)
         # stored planes -> query planes (bcount._planes_as_queries)
         qp = torch.cat([qs[:P - 1] | qs[P - 1:], qs[P - 1:]])
         counts = [bcount._bcount_call(qp.to(xs.device), xs) & 0xFFFF
-                  for xs in shards]
+                  if xs is not None else None for xs in xp.parts[0]]
         if cap is None:
             return _assemble(mesh, [counts], B, Gs)
         k = min(cap, Gs)
-        top = [_shard_topk(c, k, t, int(min_score))
-               for t, c in enumerate(counts)]
-        return (_assemble(mesh, [[v for v, _ in top]], B, k),
-                _assemble(mesh, [[g for _, g in top]], B, k))
+        top = [torch.stack(_shard_topk(c, k, t, int(min_score)))
+               if c is not None else None for t, c in enumerate(counts)]
+        both = _assemble(mesh, [top], B, k, lead=(2,))
+        return both[0], both[1]
 
     return fn
 
@@ -382,17 +450,15 @@ def sharded_count_packed(mesh):
     def fn(qp, xp):
         qp = _host_or_tensor(qp)
         Qs, Gs = _dp_rows(mesh, qp.shape[0]), xp.rows_per_shard
-        blocks = []
-        for d, row in enumerate(mesh.devices):
-            out = []
-            for t, dev in enumerate(row):
-                qd = qp[d * Qs:(d + 1) * Qs].to(dev)
-                parts = [pcount._count_call(qd[a:b], xp.parts[d][t])
-                         for a, b in pcount._launch_ranges(
-                             Qs, Gs, pcount.OUT_BUDGET)]
-                out.append(parts[0] if len(parts) == 1 else torch.cat(parts))
-            blocks.append(out)
-        return _assemble(mesh, blocks, qp.shape[0], Gs)
+
+        def count(d, t, dev):
+            qd = qp[d * Qs:(d + 1) * Qs].to(dev)
+            parts = [pcount._count_call(qd[a:b], xp.parts[d][t])
+                     for a, b in pcount._launch_ranges(
+                         Qs, Gs, pcount.OUT_BUDGET)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        return _assemble(mesh, _grid(mesh, count), qp.shape[0], Gs)
 
     return fn
 
@@ -403,20 +469,21 @@ def _ingest(mesh, merged, index: Sharded, g0: int):
     [g0, g0+Q) it owns (rows owned by another shard are dropped, never
     wrapped) into a copy of itself, and each dp slice counts against the
     updated shards. Returns (new index, counts (Q, G))."""
-    all_sk = torch.cat([m.to(mesh.first) for m in merged])
+    all_sk = _gather_slices(mesh, merged)
     Q = all_sk.shape[0]
     Gs = index.rows_per_shard
-    pieces = []
-    for t, xs in enumerate(index.parts[0]):
-        new = xs.clone()
-        lpos = g0 + torch.arange(Q, device=mesh.first) - t * Gs
+    pieces = [None] * mesh.shape["tp"]
+    for t in range(mesh.shape["tp"]):
+        if mesh.column_home(t) is None:
+            continue
+        new = index.column(t).clone()
+        lpos = g0 + torch.arange(Q, device=all_sk.device) - t * Gs
         own = (lpos >= 0) & (lpos < Gs)
         new[lpos[own].to(new.device)] = all_sk[own].to(new.device)
-        pieces.append(new)
+        pieces[t] = new
     new_index = Sharded.from_pieces(mesh, pieces, axis=0)
-    blocks = [[_eq_counts(merged[d].to(dev), new_index.parts[d][t])
-               for t, dev in enumerate(row)]
-              for d, row in enumerate(mesh.devices)]
+    blocks = _grid(mesh, lambda d, t, dev: _eq_counts(
+        merged[d].to(dev), new_index.parts[d][t]))
     return new_index, _assemble(mesh, blocks, Q, Gs)
 
 

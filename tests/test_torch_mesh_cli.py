@@ -147,10 +147,20 @@ def test_load_sharded_mesh_direct_lazy_matrix(tmp_path, tm, monkeypatch):
 
 
 def test_init_distributed_multi_process_not_ported():
+    """The name is kept from when more than one process raised; the
+    multi-process mesh runs in tests/test_torch_multihost.py. One process
+    is a no-op, and a backend other than nccl/gloo or a missing
+    coordinator raises before any connection is tried."""
+    import torch.distributed as dist
     from niqki_tpu_torch.parallel.serving import init_distributed
     init_distributed(None, 1, 0)                 # one process: a no-op
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        init_distributed("tcp://localhost:1234", 2, 0)
+    init_distributed(None, None, None)
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="backend 'mpi'"):
+        init_distributed("127.0.0.1:1234", 2, 0, backend="mpi")
+    with pytest.raises(ValueError, match="coordinator"):
+        init_distributed(None, 2, 0, backend="gloo")
+    assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------
