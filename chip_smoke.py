@@ -129,6 +129,29 @@ Phases (any failure raises and exits non-zero):
      version, K1 against torch.sort; each rank's walls, host seconds in
      collectives and peak device memory are printed beside the
      one-process twins' walls. A rank that fails or hangs fails the phase.
+ 19. the rest of the JAX package's surface: (a) sketch_codes of six random
+     4.64 Mbp records (one with runs of N) at S=15, K1 at 1 x 2^23 exactly
+     six times, each table equal to native.sketch_codes_cpu and to the
+     same keys sorted by torch.sort (K1's plain version); 20 kb
+     records at lF=24 and W=30 through the scatter-min equal to the host's;
+     dispatch_sketch of a record timed beside K1. (b) all_vs_all_counts of
+     phase 4's index (K2: 42 blocks of 96 and one of 64) and of phase 6's
+     (one K3 launch): 96 sampled rows equal native.count_eq, the diagonal
+     F. (c) phase 13's v3 directory loaded: hits of 8 of phase 13's rows
+     equal hits_from_counts of its counts, and
+     ShardedIndex.from_checkpoint(ck).hits equals
+     SketchIndex.load_sharded(ck).hits for a random query. (d) phase 13's
+     96 counts through the reloaded index equal phase 13's (K2 at
+     96 x 102,400 x 128 lanes, held against its plain version and
+     F - cdist, and timed, as at 1 x 102,400 for hits). (e) phase 6's -M -S 10
+     through the API under NIQKI_TPU_GZLEVEL=1 gives phase 6's
+     decompressed bytes; native.gzip_member against Python's zlib on 4 MiB
+     of config-5 row text at levels 1 and 6, in MB/s, and whether the
+     library links libdeflate. (f) insert_file_whole of phase 4's first 32
+     files gives their rows of phase 4's matrix (K1 at 2 x 2^17);
+     match_counts_bitplane at the -Q shape equals the plain blocked count
+     and sort_i32_pow2 at 2^23 equals torch.sort. Phase 19 removes phase
+     13's v3 directory.
 
 Phase 2 also checks and times K1 at 512 x 2^16, the lines-mode shape of
 phase 8's 40-65 kb contigs, and K2 at two of phase 10's windows (block 0,
@@ -142,7 +165,8 @@ length), its error, times, bound and library time, then phase 13's
 checkpoint numbers, phase 14's and phase 15's, 16's, 17's and 18's (K1,
 K2 and K3 rows carry launches_phase16, launches_phase17 and, per rank,
 launches_phase18, with rows of their own at the per-device and per-shard
-shapes); the last line names the device. Without a CUDA device, or without the
+shapes; rows on phase 19's paths carry launches_phase19, and phase 19's
+numbers follow); the last line names the device. Without a CUDA device, or without the
 port's package beside it, the script fails before printing either. It
 imports nothing of JAX and no module of the JAX package: the host-native
 reference comes through the port (``niqki_tpu_torch.native``,
@@ -723,7 +747,7 @@ class Spy:
     def __init__(self):
         import torch
         from niqki_tpu_torch import engine, index, kernels
-        from niqki_tpu_torch.ops import bcount, pcount, sketch
+        from niqki_tpu_torch.ops import bcount, pcount, psort, sketch
         self.times: dict[str, float] = {}
         self.index = None
         self.sparse_hits = 0
@@ -740,6 +764,8 @@ class Spy:
             "query_matrix", "_query_matrix_selfjoin", "query_file_lines")]
         self._orig.append((sketch, "sort_i32_pow2_batch",
                            sketch.sort_i32_pow2_batch))
+        self._orig.append((psort, "sort_i32_pow2_batch",
+                           psort.sort_i32_pow2_batch))
         self._orig.append((bcount, "_bcount_call", bcount._bcount_call))
         self._orig.append((pcount, "_count_call", pcount._count_call))
         self._orig.append((engine, "_query_matrix_selfjoin_sym",
@@ -852,6 +878,7 @@ class Spy:
             "sweep_s", orig["_query_matrix_selfjoin"])
         engine.query_file_lines = timed("lines_s", orig["query_file_lines"])
         sketch.sort_i32_pow2_batch = sort
+        psort.sort_i32_pow2_batch = sort
         bcount._bcount_call = k2
         pcount._count_call = k3
         engine._query_matrix_selfjoin_sym = sym
@@ -2015,7 +2042,7 @@ def phase17_restarts(p13: dict, spy: "Spy") -> dict:
         del srv, got
         gc.collect()
         torch.cuda.empty_cache()
-        if tag == "v2":         # phase 18 restarts from v3, then removes it
+        if tag == "v2":         # phases 18 and 19 read v3; 19 removes it
             shutil.rmtree(ck)
     return res
 
@@ -2256,7 +2283,6 @@ def phase_multiprocess(d: str, fof: str, qfof: str, p13: dict, sha5: str,
         os.remove(path)
         require(got == sha5, f"phase 18 rank {r}: config 5 -M after the 1x8 "
                 f"restart has sha256 {got}, phase 10's {sha5}")
-    shutil.rmtree(p13["dirs"]["v3"])
     # launches per rank and path, where the layout fixes them
     k1_single = single["m15"]["psort"]
 
@@ -2300,6 +2326,391 @@ def phase_multiprocess(d: str, fof: str, qfof: str, p13: dict, sha5: str,
         f"phase 13's and -M sha256 == phase 10's; one-process twins' walls: "
         f"{single['walls']}")
     return {"wall_s": wall, "ranks": ranks}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the rest of the surface
+
+ECOLI, N_ECOLI = 4_640_000, 6    # phase 19 (a): E. coli-sized records
+
+
+def ecoli_records():
+    """N_ECOLI random records of ECOLI bases as (eff_fwd, eff_rc) codes
+    (numpy seed SEED + 19); the last holds 40 runs of 1000 N, where both
+    codes are 0, as the encoders give them."""
+    rng = np.random.default_rng(SEED + 19)
+    out = []
+    for i in range(N_ECOLI):
+        f = rng.integers(0, 4, ECOLI, dtype=np.uint8)
+        r = (3 - f).astype(np.uint8)
+        if i == N_ECOLI - 1:
+            for at in rng.integers(0, ECOLI - 1000, 40):
+                f[at:at + 1000] = 0
+                r[at:at + 1000] = 0
+        out.append((f, r))
+    return out
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median milliseconds from calling fn() to the card finishing its
+    work (host share included)."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def spied_run(spy: "Spy", fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (result, launches, launches by (kernel, shape))."""
+    from niqki_tpu_torch import kernels
+    spy.reset()
+    kernels.reset_launches()
+    out = fn()
+    launches = dict(kernels.LAUNCHES)
+    return out, launches, spied_shapes(spy, launches)
+
+
+def phase19_sketch(spy: "Spy") -> dict:
+    """Phase 19 (a): sketch_codes of six E. coli-sized records on the
+    card, K1 at 1 x 2^23 once each, every table equal to the host's
+    rolling sketch (native.sketch_codes_cpu) and to the same keys sorted by
+    torch.sort, K1's plain version; 20 kb records at lF = 24
+    and W = 30 take the scatter-min and equal the host's sketch;
+    dispatch_sketch of one record and K1's share of it are timed."""
+    import torch
+    from niqki_tpu_torch import SketchParams, native
+    from niqki_tpu_torch.ops import psort, sketch
+    p = SketchParams(lF=S)
+    recs = ecoli_records()
+    tables, launches, shapes = spied_run(spy, lambda: [
+        sketch.sketch_codes(f, r, p) for f, r in recs])
+    key = (1 << 23)
+    require(launches["psort"] == N_ECOLI and shapes.get(
+        ("psort", f"1x{key}"), 0) == N_ECOLI,
+        f"sketch_codes of {N_ECOLI} records: K1 launches {shapes}")
+    t = time.time()
+    for (f, r), tab in zip(recs, tables):
+        require(np.array_equal(tab, native.sketch_codes_cpu(
+            f, r, p.lF, p.K, p.W, p.H)), "a sketch_codes table differs "
+            "from native.sketch_codes_cpu")
+    host_s = time.time() - t
+    require(all((tab == sketch.INT32_MAX).sum() < p.F for tab in tables),
+            "sketch tables are empty")
+    Wb = sketch._fp_bits(p.W, p.H, p.mask_M, p.maximal_remainder)
+
+    def ecoli_keys(f, r):
+        """The record's composite keys, padded to K1's 2^23 row."""
+        codes = torch.from_numpy(np.stack([f, r])).cuda()
+        nk = torch.full((1,), len(f) - p.K, dtype=torch.int32,
+                        device="cuda")
+        keys = sketch._keys_core(codes[0:1], codes[1:2], nk, lF=p.lF,
+                                 K=p.K, W=p.W, H=p.H)
+        return torch.nn.functional.pad(keys, (0, key - keys.shape[1]),
+                                       value=sketch.INT32_MAX).contiguous()
+    for (f, r), tab in zip(recs, tables):
+        plain = sketch._extract_core(psort.sort_plain(ecoli_keys(f, r)),
+                                     lF=p.lF, Wb=Wb)
+        require(np.array_equal(plain[0].cpu().numpy(), tab),
+                "a sketch_codes table differs from the same keys sorted "
+                "by torch.sort")
+    rng = np.random.default_rng(SEED + 20)
+    scatter = {}
+    for tag, kw in (("lF=24", dict(lF=24)), ("W=30", dict(lF=12, W=30))):
+        q = SketchParams(**kw)
+        f = rng.integers(0, 4, 20_000, dtype=np.uint8)
+        r = (3 - f).astype(np.uint8)
+        (tab,), sl, _ = spied_run(spy, lambda: [sketch.sketch_codes(f, r, q)])
+        require(sl["psort"] == 0 and np.array_equal(
+            tab, native.sketch_codes_cpu(f, r, q.lF, q.K, q.W, q.H)),
+            f"scatter-min sketch at {tag} differs from the host's ({sl})")
+        scatter[tag] = int((tab != sketch.INT32_MAX).sum())
+    f, r = recs[0]
+    disp_ms = wall_ms(lambda: sketch.dispatch_sketch(f, r, p))
+    keys = ecoli_keys(f, r)
+    k1_ms = time_cuda(lambda: psort.sort_i32_pow2_batch(keys), reps=5)
+    del keys
+    res = {"launches": launches, "shapes": shapes, "dispatch_ms": disp_ms,
+           "k1_ms": k1_ms, "k1_share": k1_ms / disp_ms,
+           "host_check_s": host_s, "scatter_slots": scatter}
+    log(f"phase 19 (a): sketch_codes of {N_ECOLI} x {ECOLI} bases: "
+        f"{N_ECOLI} K1 launches at 1 x 2^23, tables == "
+        f"native.sketch_codes_cpu ({host_s:.2f} s) and == torch.sort of "
+        f"the same keys; scatter-min at lF=24 / W=30 == host ({scatter} "
+        f"slots filled); dispatch_sketch {disp_ms:.3f} ms a record, K1 "
+        f"{k1_ms:.3f} ms of it ({100 * k1_ms / disp_ms:.1f}%)")
+    return res
+
+
+def phase19_all_vs_all(spy: "Spy", idx, kernel: str, want: dict) -> dict:
+    """Phase 19 (b): idx.all_vs_all_counts() through ``kernel`` with the
+    launches ``want`` by shape; 96 sampled rows equal native.count_eq and
+    the diagonal is F."""
+    from niqki_tpu_torch import native
+    p = idx.params
+    t = time.time()
+    c, launches, shapes = spied_run(spy, idx.all_vs_all_counts)
+    wall = time.time() - t
+    got = {k: n for (kk, k), n in shapes.items() if kk == kernel}
+    require(got == want and sum(launches.values()) == sum(want.values()),
+            f"all_vs_all_counts at S={p.lF}: launches {shapes}, want "
+            f"{kernel} {want}")
+    require(c.shape == (idx.G, idx.G) and (np.diag(c) == p.F).all(),
+            f"all_vs_all_counts at S={p.lF}: shape {c.shape} or diagonal")
+    rows = sorted(np.random.default_rng(SEED + 21).choice(idx.G, 96,
+                                                          replace=False))
+    ref = native.count_eq(idx.matrix()[rows], idx._stored(),
+                          p.fingerprint_range)
+    require(np.array_equal(c[rows], ref), f"all_vs_all_counts at S={p.lF}: "
+            "sampled rows differ from native.count_eq")
+    log(f"phase 19 (b): all_vs_all_counts at S={p.lF} ({idx.G}^2) "
+        f"{wall:.2f} s, {kernel} launches {got}; 96 rows == "
+        f"native.count_eq, diagonal == F")
+    return {"wall_s": wall, "launches": launches, "shapes": shapes}
+
+
+def phase19_config5(spy: "Spy", p13: dict) -> dict:
+    """Phase 19 (c) and (d): phase 13's v3 directory loaded; hits of 8 of
+    phase 13's rows == hits_from_counts of phase 13's counts;
+    ShardedIndex.from_checkpoint(ck).hits == SketchIndex.load_sharded(ck)
+    .hits for a random query; the 96 counts through the reloaded index ==
+    phase 13's; K2 at 96 x 102,400 x 128 lanes held against its plain
+    version and timed. Returns the loaded index's names too, for the
+    writer's row text."""
+    import torch
+    from niqki_tpu_torch import SketchIndex
+    from niqki_tpu_torch.ops import bcount
+    from niqki_tpu_torch.parallel.serving import ShardedIndex
+    ck, q, want = p13["dirs"]["v3"], p13["q"], p13["want"]
+    t = time.time()
+    idx = SketchIndex.load_sharded(ck)
+    load_s = time.time() - t
+    picks = list(range(0, 96, 12))
+    t = time.time()
+    hits, hl, hshapes = spied_run(spy, lambda: [idx.hits(q[i])
+                                                for i in picks])
+    hits_s = time.time() - t
+    for i, h in zip(picks, hits):
+        require(h == idx.hits_from_counts(want[i]) and len(h) > 1,
+                f"hits of row {i} differ from phase 13's counts")
+    require(hl["bcount"] == len(picks), f"hits: K2 launches {hshapes}")
+    rng = np.random.default_rng(SEED + 22)
+    rq = idx.matrix()[int(rng.integers(idx.G))].copy()
+    flip = rng.random(rq.shape) < 0.3
+    rq[flip] = rng.integers(0, 1 << idx.params.W, int(flip.sum()))
+    t = time.time()
+    srv = ShardedIndex.from_checkpoint(ck)
+    (srv_hits, one_hits), _, rshapes = spied_run(
+        spy, lambda: (srv.hits(rq), idx.hits(rq)))
+    srv_s = time.time() - t
+    require(srv_hits == one_hits and len(srv_hits) > 1,
+            "ShardedIndex.from_checkpoint(ck).hits differs from "
+            "SketchIndex.load_sharded(ck).hits")
+    add_shapes(hshapes, rshapes)
+    del srv
+    t = time.time()
+    got, sl, sshapes = spied_run(spy, lambda: idx.counts(q))
+    counts_s = time.time() - t
+    require(np.array_equal(got, want) and sl["bcount"] == 1,
+            f"counts of the reloaded index differ from phase 13's ({sl})")
+    # K2 at the shape of these counts, against its plain version
+    W = idx.params.W
+    xp = idx._planes()
+    q16 = idx._query_side(q).astype(np.int16)
+    qd = torch.from_numpy(q16).cuda()
+    qp = bcount.pack_bitplanes(qd, W=W, query=True)
+    k2 = bcount._bcount_call(qp, xp)
+    plain = bcount._bcount_plain(qp, xp)
+    err = int((k2 - plain).abs().max())
+    xf = torch.from_numpy(idx._stored()).cuda().float()
+    qf = qd.float()
+    require(err == 0 and np.array_equal(k2.cpu().numpy()[:, :idx.G], want)
+            and torch.equal(cdist_counts(qf, xf).to(torch.int32), k2),
+            "K2 at 96 x 102,400 x 128 lanes differs from its plain version, "
+            "phase 13's counts or F - cdist")
+    k2_rows = bcount_stats(qp, xp, qf, xf, err, plain_reps=3)
+    qp1 = qp[:, :1].contiguous()          # the shape of one hits() query
+    err1 = int((bcount._bcount_call(qp1, xp) - plain[:1]).abs().max())
+    require(err1 == 0, "K2 at 1 x 102,400 x 128 lanes differs from its "
+            "plain version")
+    k2_hit = bcount_stats(qp1, xp, qf[:1], xf, err1, plain_reps=3)
+    del k2, plain, xf, qf, qp1
+    names, params = idx.names, idx.params
+    del idx, xp, qd, qp
+    torch.cuda.empty_cache()
+    log(f"phase 19 (c): load_sharded v3 {load_s:.2f} s; hits of {len(picks)} "
+        f"rows {hits_s:.2f} s == hits_from_counts of phase 13's counts "
+        f"(K2 {hshapes}); ShardedIndex.from_checkpoint(ck).hits == "
+        f"load_sharded(ck).hits for a random query ({len(srv_hits)} hits, "
+        f"{srv_s:.2f} s)")
+    log(f"phase 19 (d): 96 counts of the reloaded index {counts_s:.2f} s "
+        f"== phase 13's (K2 {sshapes}); K2 at 96 x 102,400 x 128 lanes "
+        f"{k2_rows}, at 1 x 102,400 (hits) {k2_hit}")
+    return {"load_s": load_s, "hits_s": hits_s, "counts_s": counts_s,
+            "hits_shapes": hshapes, "counts_shapes": sshapes,
+            "k2_rows": k2_rows, "k2_hit": k2_hit,
+            "names": names, "params": params,
+            "launches": add_shapes(dict(hshapes), sshapes)}
+
+
+def phase19_outputs(d: str, spy: "Spy", idx10) -> dict:
+    """Phase 19 (e)'s output: phase 6's -M -S 10 under NIQKI_TPU_GZLEVEL=1
+    (phase 6's decompressed bytes)."""
+    from niqki_tpu_torch import engine
+    from niqki_tpu_torch.io.writers import GzTextWriter
+    out, want = os.path.join(d, "p19.gz"), os.path.join(d, "m10.gz")
+
+    def write():
+        with GzTextWriter(out) as w:
+            engine.query_matrix(idx10, w)
+    os.environ["NIQKI_TPU_GZLEVEL"] = "1"
+    try:
+        t = time.time()
+        _, launches, shapes = spied_run(spy, write)
+        wall = time.time() - t
+    finally:
+        del os.environ["NIQKI_TPU_GZLEVEL"]
+    require(gz_bytes(out) == gz_bytes(want),
+            "phase 19: -M -S 10 at gzip level 1 differs from m10.gz's bytes")
+    res = {"wall_s": wall, "launches": launches, "shapes": shapes,
+           "bytes": os.path.getsize(out), "want_bytes": os.path.getsize(want)}
+    os.remove(out)
+    log(f"phase 19: -M -S 10 level 1 {wall:.2f} s == m10.gz decompressed; "
+        f"launches {launches}; {res['bytes']} gzip bytes against "
+        f"{res['want_bytes']}")
+    return res
+
+
+def phase19_gzip(names, want: np.ndarray, F: int, min_score: int) -> dict:
+    """Phase 19 (e): native.gzip_member against Python's zlib on 4 MiB of
+    config-5 row text (phase 13's counts formatted as matrix rows), at
+    levels 1 and 6, in MB/s (median and best of nine calls each, the two
+    interleaved); and whether the library links libdeflate."""
+    import zlib
+    from niqki_tpu_torch import native
+    fmt = native.MatrixFormatter(names, F, min_score)
+    text = b""
+    row = 0
+    while len(text) < (4 << 20):
+        text += fmt.format_dense((want[row % len(want)][None] & 0xFFFF)
+                                 .astype(np.uint16), row)
+        row += 1
+    data = text[:4 << 20]
+
+    def zl(level):
+        co = zlib.compressobj(level, zlib.DEFLATED, 31)
+        return co.compress(data) + co.flush()
+    res = {}
+    for level in (1, 6):
+        fns = {"native": lambda: native.gzip_member(data, level),
+               "zlib": lambda: zl(level)}
+        times = {tag: [] for tag in fns}
+        outs = {}
+        for rep in range(9):          # interleaved, the order alternating
+            for tag in (sorted(fns) if rep % 2 else sorted(fns)[::-1]):
+                t = time.perf_counter()
+                outs[tag] = fns[tag]()
+                times[tag].append(time.perf_counter() - t)
+        for tag, out in outs.items():
+            require(zlib.decompress(out, 31) == data,
+                    f"{tag} gzip member at level {level} does not inflate "
+                    "to its input")
+            res[f"{tag} level {level}"] = {
+                "MB_per_s": len(data) / statistics.median(times[tag]) / 1e6,
+                "MB_per_s_best": len(data) / min(times[tag]) / 1e6,
+                "ratio": len(data) / len(out)}
+    with open("/proc/self/maps") as f:
+        res["libdeflate"] = "libdeflate" in f.read()
+    log(f"phase 19 (e): gzip of 4 MiB of config-5 row text: {res}")
+    return res
+
+
+def phase19_wrappers(d: str, spy: "Spy", fof: str, idx15) -> dict:
+    """Phase 19 (f): insert_file_whole of phase 4's first 32 files gives
+    their rows of phase 4's matrix; match_counts_bitplane at the -Q shape
+    (96 x 4096, S = 15, P = 13) equals the plain blocked count, and
+    sort_i32_pow2 at 2^23 equals torch.sort."""
+    import torch
+    from niqki_tpu_torch import SketchIndex
+    from niqki_tpu_torch.ops import bcount, count, psort
+    with open(fof) as f:
+        paths = [os.path.join(d, ln.strip()) for ln in f if ln.strip()][:32]
+    idx = SketchIndex(idx15.params)
+
+    def insert():
+        for path in paths:
+            idx.insert_file_whole(path)
+    t = time.time()
+    _, il, ishapes = spied_run(spy, insert)
+    ins_s = time.time() - t
+    require(np.array_equal(idx.matrix(), idx15.matrix()[:32])
+            and idx.names == paths and il["psort"] == 32,
+            f"insert_file_whole of 32 files: rows differ from phase 4's or "
+            f"K1 launches {ishapes}")
+    g, gd, q, _, _ = bcount_inputs(13)
+    got, bl, bshapes = spied_run(spy, lambda: bcount.match_counts_bitplane(
+        q, g, 12))
+    qd = torch.from_numpy(np.where(q < 0, -3, q)).cuda()
+    plain = count.match_counts_blocked(qd, torch.where(gd < 0, -2, gd),
+                                       block_q=8).cpu().numpy()
+    require(bl["bcount"] == 1 and np.array_equal(got, plain),
+            f"match_counts_bitplane differs from the plain count ({bl})")
+    x = torch.from_numpy(np.random.default_rng(SEED + 23).integers(
+        -2**31, 2**31, 1 << 23).astype(np.int32)).cuda()
+    srt, sl, sshapes = spied_run(spy, lambda: psort.sort_i32_pow2(x))
+    require(sl["psort"] == 1 and torch.equal(srt, psort.sort_plain(
+        x[None])[0]), f"sort_i32_pow2 differs from torch.sort ({sl})")
+    del gd, qd, x, srt
+    torch.cuda.empty_cache()
+    log(f"phase 19 (f): insert_file_whole of 32 files {ins_s:.2f} s == "
+        f"phase 4's rows (K1 {ishapes}); match_counts_bitplane == the "
+        f"plain count (K2 {bshapes}); sort_i32_pow2 at 2^23 == torch.sort "
+        f"(K1 {sshapes})")
+    return {"insert_s": ins_s,
+            "shapes": add_shapes(add_shapes(dict(ishapes), bshapes), sshapes)}
+
+
+def phase_surface(d: str, fof: str, idx15, idx10, p13: dict,
+                  spy: "Spy") -> dict:
+    """Phase 19: the rest of the JAX package's surface on the card, (a) to
+    (f) above. Returns each part's numbers and the launches by shape over
+    the phase (``shapes``)."""
+    import shutil
+    t0 = time.time()
+    res = {"a": phase19_sketch(spy)}
+    G_ = idx15.G
+    last = G_ - (G_ // 96) * 96
+    res["b15"] = phase19_all_vs_all(spy, idx15, "bcount", {
+        f"P=13 Qb=96 G={G_} L=1024": G_ // 96,
+        f"P=13 Qb={last} G={G_} L=1024": 1})
+    res["b10"] = phase19_all_vs_all(spy, idx10, "pcount", {
+        f"Qb={G_} G={G_} F=1024": 1})
+    res["c"] = phase19_config5(spy, p13)
+    res["out"] = phase19_outputs(d, spy, idx10)
+    p5 = res["c"].pop("params")
+    res["e"] = phase19_gzip(res["c"].pop("names"), p13["want"], p5.F,
+                            p5.min_score)
+    res["f"] = phase19_wrappers(d, spy, fof, idx15)
+    shapes = {}
+    for part in (res["a"]["shapes"], res["b15"]["shapes"],
+                 res["b10"]["shapes"], res["c"]["launches"],
+                 res["out"]["shapes"],
+                 res["f"]["shapes"]):
+        add_shapes(shapes, part)
+    require(all(any(k == kernel for k, _ in shapes) for kernel in
+                ("psort", "bcount", "pcount")),
+            f"phase 19 skipped a kernel: {shapes}")
+    shutil.rmtree(p13["dirs"]["v3"])
+    res["shapes"] = shapes
+    res["wall_s"] = time.time() - t0
+    log(f"phase 19: {res['wall_s']:.1f} s; launches by shape {shapes}")
+    return res
 
 
 def kernel_entry(name, source, replaces, launches, stats, mesh,
@@ -2423,7 +2834,6 @@ def main() -> int:
             p11 = phase_dense_overflow(d, spy)
             # ---- phases 12 to 15
             p12 = phase_checkpoints(d, fof, qfof, idx15, idx10, spy)
-            del idx15, idx10
             p13 = phase_checkpoints_config5(
                 d, c5.pop("index"), c5["full"]["times"]["planes_s"])
             p14 = phase_profile(d, fof, qfof, wall5)
@@ -2445,12 +2855,18 @@ def main() -> int:
             p18 = phase_multiprocess(d, fof, qfof, p13,
                                      c5["full"]["sha256"],
                                      {"m15": m15, "walls": twins})
+            # ---- phase 19
+            p19 = phase_surface(d, fof, idx15, idx10, p13, spy)
+            del idx15, idx10
         finally:
             spy.close()
     torch.cuda.empty_cache()
     s18 = check_shards(8, 1)
     for key, e in s18.items():
         log(f"phase 18: {key} per shard at 1x8 {e}")
+    k1_one = check_psort(2, LEN, 1 << 17)
+    log(f"phase 19: K1 psort at insert_file_whole's shape (2 x 2^17) "
+        f"{k1_one}")
     k1_dev = check_psort(32, LEN, 1 << 17)
     log(f"phase 16: K1 psort per device (32 x 2^17) {k1_dev}")
     # -i/-l's most launched shapes a device (phase 16's launches by shape)
@@ -2491,6 +2907,9 @@ def main() -> int:
     def in18(kernel, stats):
         return sum(mesh(kernel, stats)[2].values())
 
+    def in19(kernel, stats):
+        return p19["shapes"].get((kernel, stats["shape"]), 0)
+
     def in16(tag, kernel, stats):
         return p16[tag]["shapes"].get((kernel, stats["shape"]), 0)
     sh = p16["shards"]
@@ -2510,10 +2929,22 @@ def main() -> int:
                      mesh("psort", k1[512]),
                      launches_from="phase 8, -i/-l -S 15: the 40-65 kb "
                      "contigs", later=k1_later(1 << 16)),
-        kernel_entry("psort sort_i32_pow2_batch (K1, 1 x 2^23)", *k1_src, 0,
-                     k1[1], mesh("psort", k1[1]), launches_from=ecoli),
+        kernel_entry("psort sort_i32_pow2_batch (K1, 1 x 2^23)", *k1_src,
+                     p19["a"]["shapes"].get(("psort", k1[1]["shape"]), 0),
+                     k1[1], mesh("psort", k1[1]),
+                     launches_phase19=in19("psort", k1[1]),
+                     launches_from="phase 19 (a), sketch_codes of six "
+                     "4.64 Mbp records (launches_phase19: with (f)'s "
+                     "sort_i32_pow2)"),
         kernel_entry("psort sort_i32_pow2_batch (K1, 6 x 2^23)", *k1_src, 0,
                      k1[6], mesh("psort", k1[6]), launches_from=ecoli),
+        kernel_entry("psort sort_i32_pow2_batch (K1, 2 x 2^17)", *k1_src,
+                     p19["f"]["shapes"].get(("psort", k1_one["shape"]), 0),
+                     k1_one, mesh("psort", k1_one),
+                     launches_phase19=in19("psort", k1_one),
+                     launches_from="phase 19 (f), insert_file_whole of 32 "
+                     "genomes of 100 kb, one launch each (a batch of one "
+                     "record padded to two rows)"),
         kernel_entry("bcount _bcount_call (K2, -M window at G = 4096: "
                      "768 x 4608 of the extended planes)", *k2_src,
                      m15["bcount"], k2["-M window"],
@@ -2531,9 +2962,30 @@ def main() -> int:
                      later=(l8["bcount"], l9["bcount"]),
                      launches_phase12=p12["a"]["bcount"],
                      launches_phase14=l14["bcount"],
+                     launches_phase19=in19("bcount", k2["-Q"]),
                      launches_from="phase 5, -I/-Q -S 15; phases 8 and 9: "
                      "-l in 96-query blocks; phase 12: --load-sharded -Q; "
-                     "phase 14: the profiled -I/-Q"),
+                     "phase 14: the profiled -I/-Q; phase 19: "
+                     "all_vs_all_counts at S=15 (42 blocks of 96, its 64-row "
+                     "last block at a shape of its own) and "
+                     "match_counts_bitplane"),
+        kernel_entry("bcount _bcount_call (K2, 96 x 102,400 x 128 lanes, "
+                     "P=13: config 5's counts of 96 rows)", *k2_src,
+                     in19("bcount", p19["c"]["k2_rows"]),
+                     p19["c"]["k2_rows"],
+                     mesh("bcount", p19["c"]["k2_rows"]),
+                     launches_phase13=p13["launches"],
+                     launches_from="phase 19 (c) and (d): "
+                     "ShardedIndex.hits of one query (padded to 96 rows) "
+                     "and the 96 counts of the reloaded config-5 index "
+                     "(launches_phase13: phase 13's reloads, v3 and v2)"),
+        kernel_entry("bcount _bcount_call (K2, 1 x 102,400 x 128 lanes, "
+                     "P=13: hits of one query against config 5)", *k2_src,
+                     in19("bcount", p19["c"]["k2_hit"]),
+                     p19["c"]["k2_hit"],
+                     mesh("bcount", p19["c"]["k2_hit"]),
+                     launches_from="phase 19 (c), SketchIndex.hits of 9 "
+                     "queries after the v3 restart"),
         kernel_entry("bcount _bcount_call (K2, 96 x 102,400 rows)", *k2_src,
                      0, k2["rows"], mesh("bcount", k2["rows"]),
                      launches_from="not on the main path (phase 2 only)"),
@@ -2572,7 +3024,10 @@ def main() -> int:
                        launches_from=off_path) for key in "abc"],
         kernel_entry("pcount _count_call (K3, shape d, the -M call)",
                      *k3_src, m10["pcount"], k3["d"], mesh("pcount", k3["d"]),
-                     launches_from="phase 6, -M -S 10"),
+                     launches_phase19=in19("pcount", k3["d"]),
+                     launches_from="phase 6, -M -S 10 (launches_phase19: "
+                     "all_vs_all_counts at S=10 and the -M -S 10 at gzip "
+                     "level 1)"),
         kernel_entry("pcount _count_call (K3, shape e, the -Q call)",
                      *k3_src, q10["pcount"], k3["e"], mesh("pcount", k3["e"]),
                      later=(l8["pcount"], l9["pcount"]),
@@ -2693,11 +3148,25 @@ def main() -> int:
                                                  "peak_device_gib")}
                        for tag, e in rk["paths"].items()}
                       for rk in p18["ranks"]]},
+        "surface_phase19": {
+            "wall_s": p19["wall_s"],
+            "sketch_codes": {k: p19["a"][k] for k in (
+                "dispatch_ms", "k1_ms", "k1_share", "host_check_s")},
+            "all_vs_all_s": {"S=15": p19["b15"]["wall_s"],
+                             "S=10": p19["b10"]["wall_s"]},
+            "config5": {k: p19["c"][k] for k in ("load_s", "hits_s",
+                                                 "counts_s")},
+            "gzip": p19["e"],
+            "gzip_level1_output": {k: p19["out"][k] for k in (
+                "wall_s", "bytes", "want_bytes")},
+            "insert_file_whole_s": p19["f"]["insert_s"]},
         "launches_by_shape": {
             "phase16": {f"{k} {shp}": n for (k, shp), n in sh16.items()},
             "phase17": {f"{k} {shp}": n for (k, shp), n in sh17.items()},
             "phase18": [{f"{k} {shp}": n for (k, shp), n in part.items()}
-                        for part in sh18]}}))
+                        for part in sh18],
+            "phase19": {f"{k} {shp}": n
+                        for (k, shp), n in p19["shapes"].items()}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

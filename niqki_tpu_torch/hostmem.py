@@ -55,12 +55,13 @@ def big_empty(shape, dtype) -> np.ndarray:
     """``np.empty`` for large arrays, on a hugepage-hinted anonymous mmap.
     Requests under 2 MB, and any mmap failure, take ``np.empty``. Buffers
     of 128 MB and more are pre-faulted by a few threads (first-touch
-    latency parallelizes across cores)."""
+    latency parallelizes across cores); NIQKI_TPU_NO_PREFAULT=1 skips
+    that."""
     arr = _mapped(shape, dtype)
     if arr is None:
         return np.empty(shape, dtype)
     n = arr.nbytes
-    if n >= (128 << 20):
+    if n >= (128 << 20) and not os.environ.get("NIQKI_TPU_NO_PREFAULT"):
         flat = arr.reshape(-1).view(np.uint8)
         threads = min(4, os.cpu_count() or 1)
         step = -(-n // threads)

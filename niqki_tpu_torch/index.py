@@ -36,6 +36,7 @@ from .debug import dbg
 from .dumpfmt import load_dump, save_dump
 from .io.fasta import read_records
 from .ops import bcount, mxucount, pcount
+from .ops.count import match_counts_blocked
 from .ops.sketch import INT32_MAX, dispatch_sketch_packed_batch, pack_codes
 from .params import SketchParams
 from .parallel.auto import active_mesh
@@ -209,6 +210,10 @@ class SketchIndex:
             return
         for h, s in read_records(path, p.K):
             yield (h, *pack_codes(*oracle.encode_record(s, p.K), p.K))
+
+    def _load_packed_with_headers(self, path: str):
+        """(header, words, n_bases, exc_idx) per record of one file."""
+        return list(self._iter_packed_with_headers(path))
 
     def sketch_packed_records(self, packed_records,
                               min_pad: int = 1 << 14) -> list[np.ndarray]:
@@ -420,6 +425,11 @@ class SketchIndex:
         self._stored_host = None
         return gid
 
+    def insert_file_whole(self, path: str, name: str | None = None) -> int:
+        """Insert one file as one genome (its records min-merged); the name
+        defaults to the path."""
+        return self.insert_sketch(self.sketch_file(path), name or path)
+
     @property
     def G(self) -> int:
         return len(self.names)
@@ -581,17 +591,14 @@ class SketchIndex:
         return self._counts_blocked(q)
 
     def _counts_blocked(self, q: np.ndarray) -> np.ndarray:
-        """Plain torch equality count against the device matrix (the route
-        for indexes outside both kernels' gates, and NIQKI_TPU_COUNT=xla)."""
-        mat = self._device_matrix()
+        """Plain torch equality count against the device matrix
+        (``ops.count.match_counts_blocked``; the route for indexes outside
+        both kernels' gates, and NIQKI_TPU_COUNT=xla), in blocks of at most
+        2^26 compared elements."""
         block = max(1, (1 << 26) // (self.G * self.params.F))
         qd = torch.from_numpy(q.astype(self._device_dtype)).to(self.device)
-        out = torch.empty((len(q), self.G), dtype=torch.int32,
-                          device=self.device)
-        for lo in range(0, len(q), block):
-            out[lo:lo + block] = (qd[lo:lo + block, None, :]
-                                  == mat[None]).sum(-1, dtype=torch.int32)
-        return out.cpu().numpy()
+        return match_counts_blocked(qd, self._device_matrix(),
+                                    block_q=block).cpu().numpy()
 
     def query_sketch_stream(self, rec_iter, chunk_records: int = 1 << 15):
         """Yield (records_chunk, stacked (n, F) int32 sketches) pairs from
@@ -611,6 +618,14 @@ class SketchIndex:
 
     def hits_from_counts(self, c: np.ndarray) -> list[tuple[int, int]]:
         return hits_from_counts(c, self.params.min_score)
+
+    def hits(self, q_sketch: np.ndarray) -> list[tuple[int, int]]:
+        """(count, gid) hits of one query sketch, count-descending."""
+        return self.hits_from_counts(self.counts(q_sketch[None, :])[0])
+
+    def all_vs_all_counts(self) -> np.ndarray:
+        """(G, G) count matrix of the index against itself."""
+        return self.counts(self.matrix())
 
     def _hits_fmt_cached(self):
         if self._hits_fmt is None or self._hits_fmt.G != self.G:

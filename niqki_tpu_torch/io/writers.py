@@ -19,6 +19,8 @@ import zlib
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
+from .. import native
+
 
 def format_double(v: float) -> str:
     """C++ `ostream << double` default formatting (= printf %.6g)."""
@@ -30,18 +32,22 @@ class GzTextWriter:
 
     The output is a multi-member gzip stream: text accumulates into fixed
     4 MiB blocks, each deflated as an independent gzip member on a small
-    thread pool (zlib releases the GIL) and written in order. The
+    thread pool (the deflate releases the GIL) and written in order. The
     decompressed bytes equal a single-member stream's, and standard tools
     read multi-member streams. Member boundaries sit at exactly BLOCK input
-    bytes whatever the write() sizes, so the output is deterministic.
-    Level 6 is zlib's default, the reference's.
+    bytes whatever the write() sizes, so the output is deterministic for
+    one level and one library. Members deflate through
+    ``native.gzip_member`` (libdeflate where the library was built with
+    it) where the native library is loaded, else through Python's zlib.
+    The level is NIQKI_TPU_GZLEVEL, else 6, zlib's default and the
+    reference's.
     """
 
     BLOCK = 4 << 20
-    LEVEL = 6
 
     def __init__(self, path: str):
         self.path = path
+        self._level = int(os.environ.get("NIQKI_TPU_GZLEVEL", "6"))
         self._f = open(path, "wb")
         self._buf: list[bytes] = []
         self._size = 0
@@ -50,9 +56,12 @@ class GzTextWriter:
                                                         or 1))
         self._futs = deque()
 
-    @classmethod
-    def _member(cls, data) -> bytes:
-        co = zlib.compressobj(cls.LEVEL, zlib.DEFLATED, 31)  # gzip wrapper
+    @staticmethod
+    def _member(data, level: int) -> bytes:
+        out = native.gzip_member(data, level)
+        if out is not None:
+            return out
+        co = zlib.compressobj(level, zlib.DEFLATED, 31)  # gzip wrapper
         return co.compress(data) + co.flush()
 
     def _drain(self, all_: bool = False) -> None:
@@ -61,7 +70,8 @@ class GzTextWriter:
             self._f.write(self._futs.popleft().result())
 
     def _submit(self, blk) -> None:
-        self._futs.append(self._pool.submit(self._member, blk))
+        self._futs.append(self._pool.submit(self._member, blk,
+                                            self._level))
         self._members += 1
         self._drain()
 

@@ -1,16 +1,20 @@
 """ctypes bindings of the native host library (``native/niqki_host.cpp``).
 
-The port's counterpart of ``niqki_tpu/native.py``, binding only the entry
-points the port calls: the packed FASTA/FASTQ reader (per record and
-chunked), densify, the host whole-file and per-record batch sketchers, the
-dump's bucket-stream scanner, the host equality count, the matrix and
-hit formatters and the bit-plane pack of checkpoints. The library is built from the repository's ``native/`` at
-first use (``make -C native``). Its Makefile probes for libdeflate with
-``printf '\\#include <libdeflate.h>'``, which keeps the backslash under GNU
-make 4.3+ and so passes where libdeflate is absent; when that build leaves
-no library, it is built once more with ``HAVE_DEFLATE=0`` (zlib only, the
-same decompressed bytes). Where no library can be built or loaded, callers
-take the pure-Python paths.
+The port's counterpart of ``niqki_tpu/native.py``: the FASTA/FASTQ reader
+(encoded or packed, per record and chunked), densify, the host sketchers
+(the rolling sketch of code arrays, whole-file and per-record batches of
+packed records, and their per-stage timer), the dump's bucket-stream
+scanners, the host equality count, the matrix and hit formatters, the
+bit-plane pack of checkpoints and the gzip member deflate of the writer.
+The library is built from the repository's ``native/`` at first use
+(``make -C native``; NIQKI_TPU_NO_NATIVE_BUILD=1 skips the build, and
+NIQKI_TPU_NO_NATIVE=1 leaves the library unloaded). Its Makefile probes
+for libdeflate with ``printf '\\#include <libdeflate.h>'``, which keeps the
+backslash under GNU make 4.3+ and so passes where libdeflate is absent;
+when that build leaves no library, it is built once more with
+``HAVE_DEFLATE=0`` (zlib only, the same decompressed bytes). Where no
+library is loaded, callers take the pure-Python paths. The answer is
+cached at the first call (``_tried``).
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ _lock = threading.Lock()
 
 
 def _build() -> None:
+    if os.environ.get("NIQKI_TPU_NO_NATIVE_BUILD"):
+        return
     for extra in ([], ["HAVE_DEFLATE=0"]):
         if os.path.exists(_SO_PATH):
             return
@@ -59,6 +65,22 @@ def _bind(lib) -> None:
     lib.nq_reader_open.argtypes = [ctypes.c_char_p, i64, ctypes.c_int]
     lib.nq_reader_close.restype = None
     lib.nq_reader_close.argtypes = [vp]
+    u8c = arr(np.uint8, flags="C_CONTIGUOUS")
+    lib.nq_reader_next.restype = ctypes.c_int
+    lib.nq_reader_next.argtypes = [
+        vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(i64),
+        ctypes.POINTER(vp), ctypes.POINTER(vp), ctypes.POINTER(i64)]
+    lib.nq_sketch_codes.restype = None
+    lib.nq_sketch_codes.argtypes = [u8c, u8c] + [i64] * 7 + [i32c]
+    lib.nq_scan_dump_sizes.restype = i64
+    lib.nq_scan_dump_sizes.argtypes = [u32c, i64, i64, u32c]
+    lib.nq_gzip_bound.restype = i64
+    lib.nq_gzip_bound.argtypes = [i64, i64]
+    lib.nq_gzip_member.restype = i64
+    lib.nq_gzip_member.argtypes = [vp, i64, i64, vp, i64]
+    lib.nq_sketch_stage_bench.restype = i64
+    lib.nq_sketch_stage_bench.argtypes = [u32c] + [i64] * 8 + [
+        arr(np.float64, flags="C_CONTIGUOUS")]
     lib.nq_reader_next_packed.restype = ctypes.c_int
     lib.nq_reader_next_packed.argtypes = [
         vp, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(i64),
@@ -109,6 +131,8 @@ def _load():
         if _tried:
             return _lib
         _tried = True
+        if os.environ.get("NIQKI_TPU_NO_NATIVE"):
+            return None
         _build()
         try:
             lib = ctypes.CDLL(_SO_PATH)
@@ -131,6 +155,33 @@ def _require():
     if lib is None:
         raise RuntimeError("native library unavailable")
     return lib
+
+
+def read_encoded_records(path: str, K: int, ftype: str | None = None
+                         ) -> Iterator[Tuple[str, np.ndarray, np.ndarray]]:
+    """Yield (header, eff_fwd, eff_rc) uint8 code arrays per record of
+    length > K: the records of ``io.fasta.read_records`` encoded as
+    ``oracle.encode_record`` does, with gzip decode, parse and encode in
+    C++."""
+    lib = _require()
+    ft = {None: 0, "A": 1, "Q": 2}[ftype]
+    h = lib.nq_reader_open(path.encode(), K, ft)
+    if not h:
+        raise OSError(f"cannot open {path}")
+    try:
+        hdr = ctypes.c_char_p()
+        hlen, slen = ctypes.c_int64(), ctypes.c_int64()
+        pf, pr = ctypes.c_void_p(), ctypes.c_void_p()
+        while lib.nq_reader_next(h, ctypes.byref(hdr), ctypes.byref(hlen),
+                                 ctypes.byref(pf), ctypes.byref(pr),
+                                 ctypes.byref(slen)) == 1:
+            n = slen.value
+            header = ctypes.string_at(hdr, hlen.value).decode(
+                "utf-8", "replace")
+            yield (header, _as_np(pf, n, ctypes.c_uint8, np.uint8),
+                   _as_np(pr, n, ctypes.c_uint8, np.uint8))
+    finally:
+        lib.nq_reader_close(h)
 
 
 def read_packed_records(path: str, K: int, ftype: str | None = None
@@ -267,6 +318,92 @@ def sketch_packed_batch(recs, lF: int, K: int, W: int, H: int,
     lib.nq_sketch_packed_batch(*_concat_recs(recs), B, K, lF, W, H,
                                mask_M, max_rem, out)
     return out
+
+
+def sketch_codes_cpu(eff_fwd: np.ndarray, eff_rc: np.ndarray,
+                     lF: int, K: int, W: int, H: int,
+                     mask_M: int | None = None, max_rem: int | None = None,
+                     table: np.ndarray | None = None) -> np.ndarray:
+    """The host's rolling sketch of one record's code arrays, min-merged
+    into ``table`` (INT32_MAX empty; a new table where None): the device
+    sketch's table before densify. mask_M and max_rem default to the values
+    H gives; the -G path passes the stale constants."""
+    lib = _require()
+    if table is None:
+        table = np.full(1 << lF, np.iinfo(np.int32).max, np.int32)
+    if table.dtype != np.int32 or not table.flags.c_contiguous \
+            or table.shape != (1 << lF,):
+        raise ValueError("sketch_codes_cpu takes a contiguous (2^lF,) int32 "
+                         "table")
+    if mask_M is None:
+        mask_M = (1 << (W - H)) - 1
+    if max_rem is None:
+        max_rem = (1 << H) - 1
+    eff_fwd = np.ascontiguousarray(eff_fwd, np.uint8)
+    eff_rc = np.ascontiguousarray(eff_rc, np.uint8)
+    if eff_rc.shape != eff_fwd.shape or eff_fwd.ndim != 1:
+        raise ValueError(f"code arrays of shapes {eff_fwd.shape} and "
+                         f"{eff_rc.shape}")
+    lib.nq_sketch_codes(eff_fwd, eff_rc, len(eff_fwd), K, lF, W, H, mask_M,
+                        max_rem, table)
+    return table
+
+
+def sketch_stage_bench(words: np.ndarray, n_bases: int, lF: int, K: int,
+                       W: int, H: int, reps: int = 5) -> dict:
+    """Nanoseconds a window of each stage of the host sketcher over one
+    packed record, best of ``reps``: the canonical roll (``roll_ns``), with
+    the hash, fingerprint and slot (``roll_hash_ns``), and the whole sketch
+    with its min-scatter (``full_ns``); ``hash_ns`` and ``scatter_ns`` are
+    the differences."""
+    lib = _require()
+    words = np.ascontiguousarray(words, np.uint32)
+    if n_bases > 16 * len(words):
+        raise ValueError(f"{n_bases} bases in {len(words)} packed words")
+    out = np.zeros(3, np.float64)
+    r = lib.nq_sketch_stage_bench(words,
+                                  n_bases, K, lF, W, H, (1 << (W - H)) - 1,
+                                  (1 << H) - 1, reps, out)
+    if r < 0:
+        raise ValueError("record too short")
+    return {"roll_ns": out[0], "roll_hash_ns": out[1], "full_ns": out[2],
+            "scatter_ns": out[2] - out[1], "hash_ns": out[1] - out[0]}
+
+
+def scan_dump_sizes(words: np.ndarray, n_buckets: int) -> np.ndarray:
+    """The n_buckets bucket sizes (uint32) of a NIQKI dump's
+    [size][gids...] stream; raises ValueError where the stream is
+    truncated."""
+    lib = _require()
+    words = np.ascontiguousarray(words, np.uint32)
+    sizes = np.empty(n_buckets, np.uint32)
+    if lib.nq_scan_dump_sizes(words, len(words), n_buckets, sizes) < 0:
+        raise ValueError("truncated dump bucket stream")
+    return sizes
+
+
+_gz_tls = threading.local()
+
+
+def gzip_member(data, level: int = 6) -> bytes | None:
+    """One gzip member of ``data`` (bytes or a memoryview) at ``level``:
+    libdeflate where the library was built with it, else zlib inside the
+    library. Only the decompressed bytes are the contract. Thread-safe (the
+    writer deflates on a pool); each thread keeps its output buffer, so
+    members do not first-touch fresh pages. None where the library is not
+    loaded or the member does not fit the bound."""
+    lib = _load()
+    if lib is None:
+        return None
+    src = np.frombuffer(data, np.uint8)
+    cap = int(lib.nq_gzip_bound(src.size, level))
+    buf = getattr(_gz_tls, "buf", None)
+    if buf is None or buf.size < cap:
+        buf = np.empty(max(cap, 1 << 20), np.uint8)
+        _gz_tls.buf = buf
+    m = lib.nq_gzip_member(src.ctypes.data, src.size, level,
+                           buf.ctypes.data, buf.size)
+    return None if m < 0 else buf[:m].tobytes()
 
 
 def densify(sketch: np.ndarray) -> None:

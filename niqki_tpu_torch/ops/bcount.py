@@ -15,9 +15,9 @@ launched as ``_plan`` lays out; for CPU tensors the wrapper takes the
 plain version (XNOR/AND over the planes and a SWAR popcount). Packing,
 the query-side re-encoding, top-k and the uint16 wrap are plain torch, as
 they are XLA code in the JAX package. Only the int16 query wire is ported;
-the split wire served a TPU transport. The host pack of checkpoints
-(``np_pack_bitplanes``) is the native library's, with the same bits as the
-device pack of the stored side.
+the JAX package's split wire served a TPU transport's stream compressor.
+The host pack of checkpoints (``np_pack_bitplanes``) is the native
+library's, with the same bits as the device pack of the stored side.
 """
 
 from __future__ import annotations
@@ -105,33 +105,35 @@ def np_pack_bitplanes(mat: np.ndarray, W: int,
                       row_chunk: int = 2048) -> np.ndarray:
     """(N, F) host int fingerprints -> (W+1, N, F/32) uint32 bit-planes on
     the host, the bits of pack_bitplanes(query=False) (checkpoint v3's
-    planes files). The native pack writes into ``out`` (a big_empty buffer
-    where None; a given out may be a row slice of larger planes, its last
-    two axes C-contiguous), ``row_chunk`` rows a call on a thread pool (the
-    calls release the GIL). Raises where the native library is not loaded
-    or refuses the layout; np_pack_bitplanes_plain is its numpy twin."""
+    planes files, the mesh-direct loader). The native pack writes into
+    ``out`` (a big_empty buffer where None; a given out may be a row slice
+    of larger planes, its last two axes C-contiguous), ``row_chunk`` rows a
+    call on a thread pool (the calls release the GIL). Where the native
+    library is not loaded or refuses the layout, np_pack_bitplanes_plain
+    packs into the same ``out``, with the same bits."""
     m = np.ascontiguousarray(mat, np.int32)
     N, F = m.shape
     if F % 32:
         raise ValueError(f"np_pack_bitplanes needs F % 32 == 0, got F={F}")
     if out is None:
         out = big_empty((W + 1, N, F // 32), np.uint32)
-    if not native.available():
-        raise RuntimeError("np_pack_bitplanes: the native library is not "
-                           "loaded")
     if N == 0:
         return out
+    if not native.available() or not native.pack_bitplanes(
+            m[:min(row_chunk, N)], W, out[:, :min(row_chunk, N)]):
+        return np_pack_bitplanes_plain(m, W, out, row_chunk)
 
     def pack(lo: int) -> None:
         hi = min(lo + row_chunk, N)
         if not native.pack_bitplanes(m[lo:hi], W, out[:, lo:hi]):
-            raise ValueError(f"np_pack_bitplanes: the native pack refuses "
-                             f"W={W} or out {out.dtype} {out.shape} strides "
-                             f"{out.strides}")
+            raise ValueError(f"np_pack_bitplanes: the native pack refused "
+                             f"rows {lo}:{hi} after taking rows 0:"
+                             f"{row_chunk}")
 
-    chunks = range(0, N, row_chunk)
-    if len(chunks) == 1:
-        pack(0)
+    chunks = range(row_chunk, N, row_chunk)
+    if len(chunks) <= 1:
+        for lo in chunks:
+            pack(lo)
     else:
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as ex:
             list(ex.map(pack, chunks))
@@ -315,7 +317,8 @@ def match_counts_planes(q_np: np.ndarray, xp: torch.Tensor, G: int, W: int,
                         sanitized: bool = False, topk: int | None = None,
                         min_score: int = 1):
     """counts (Q, G) int32 of host queries q_np (Q, F) against index planes
-    xp (W+1, Gp, F/32), one BLOCK_Q block per dispatch, as numpy.
+    xp (W+1, Gp, F/32), one BLOCK_Q block per dispatch (the last block
+    holds the rest, unpadded), as numpy.
 
     Queries ship as int16 (W <= 14) or int32 after sanitizing (values
     outside [0, 2^W) become -3 before any narrowing cast, so none aliases a
@@ -348,6 +351,16 @@ def match_counts_planes(q_np: np.ndarray, xp: torch.Tensor, G: int, W: int,
     if not outs:
         return np.zeros((0, G), np.int32)
     return torch.cat(outs).cpu().numpy()
+
+
+def match_counts_bitplane(q_sk: np.ndarray, g_sk: np.ndarray, W: int,
+                          device="cuda") -> np.ndarray:
+    """counts (Q, G) of host sketches q_sk (Q, F) against g_sk (G, F):
+    both sides packed, then match_counts_planes (for a resident index,
+    build_index_planes once and call match_counts_planes)."""
+    g = np.asarray(g_sk)
+    xp = build_index_planes(g, W, device)
+    return match_counts_planes(np.asarray(q_sk), xp, g.shape[0], W)
 
 
 # ---------------------------------------------------------------------------

@@ -61,3 +61,9 @@ def sort_i32_pow2_batch(x: torch.Tensor) -> torch.Tensor:
     kernels.check(err, "psort")
     kernels.LAUNCHES["psort"] += 1
     return out
+
+
+def sort_i32_pow2(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of a 1-D int32 tensor of power-of-two length
+    (>= 2^10): one row of sort_i32_pow2_batch."""
+    return sort_i32_pow2_batch(x[None, :])[0]

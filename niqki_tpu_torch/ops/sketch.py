@@ -11,6 +11,10 @@ Per-slot min: for lF + Wb <= 30 the composite keys (slot << Wb) | fp are
 sorted per record by kernel K1 (``ops.psort``) and each slot's run head is
 read by binary search (``_extract_core``); wider keys take a scatter-min.
 The empty sentinel on device is INT32_MAX; the host converts it to -1.
+
+Two entry points: ``dispatch_sketch_packed_batch`` (windows of packed
+records, the ingest's) and ``dispatch_sketch`` / ``sketch_codes`` /
+``make_sketcher`` (one record's code arrays, a batch of one).
 """
 
 from __future__ import annotations
@@ -212,6 +216,11 @@ def pack_codes(eff_fwd: np.ndarray, eff_rc: np.ndarray, K: int):
     return words, n, exc + np.int32(K - 1)
 
 
+def _param_kw(p) -> dict:
+    return dict(lF=p.lF, K=p.K, W=p.W, H=p.H, mask_M=p.mask_M,
+                max_rem=p.maximal_remainder)
+
+
 def _mesh_batch(mesh, w, nk, ex, device, **kw):
     """_batch_core with the record rows split over every mesh device in
     ('dp', 'tp') order, one launch set per device (K1 on each where the
@@ -259,8 +268,7 @@ def dispatch_sketch_packed_batch(records, p, device,
     to16 = _fp_bits(p.W, p.H, p.mask_M, p.maximal_remainder) <= 14
     mesh = active_mesh(device)
     row_align = 2 if mesh is None else 2 * mesh.size
-    kw = dict(lF=p.lF, K=p.K, W=p.W, H=p.H, mask_M=p.mask_M,
-              max_rem=p.maximal_remainder, to_i16=to16)
+    kw = dict(_param_kw(p), to_i16=to16)
     for P, idxs in sorted(groups.items()):
         maxb = max(1, (max_elems // 4) // P)
         for lo in range(0, len(idxs), maxb):
@@ -291,3 +299,51 @@ def dispatch_sketch_packed_batch(records, p, device,
                     torch.from_numpy(ex).to(device), **kw)
             out.append((chunk, dev))
     return out
+
+
+# ---------------------------------------------------------------------------
+# one record's code arrays
+
+def dispatch_sketch(eff_fwd: np.ndarray, eff_rc: np.ndarray, p,
+                    device="cuda"):
+    """One record's (F,) int32 sketch table (INT32_MAX empty, before
+    densify) as a tensor on ``device``, launched without a sync; None for a
+    record with no k-mers (length <= K). The codes are padded to
+    ``padded_size(n)`` and sketched as a batch of one; ``eff_rc`` is taken
+    as given (the caller zeroes its exceptions)."""
+    n = len(eff_fwd)
+    n_kmers = n - p.K
+    if n_kmers <= 0:
+        return None
+    codes = np.zeros((2, padded_size(n)), np.uint8)
+    codes[0, :n] = eff_fwd
+    codes[1, :n] = eff_rc
+    dev = torch.from_numpy(codes).to(device)
+    nk = torch.full((1,), n_kmers, dtype=torch.int32, device=dev.device)
+    return _codes_core(dev[0:1], dev[1:2], nk, **_param_kw(p))[0]
+
+
+def sketch_codes(eff_fwd: np.ndarray, eff_rc: np.ndarray, p,
+                 device="cuda") -> np.ndarray:
+    """One record's sketch table on ``device``, synchronously: an (F,)
+    int32 numpy array of per-slot min fingerprints, INT32_MAX where a slot
+    is empty (not densified)."""
+    out = dispatch_sketch(eff_fwd, eff_rc, p, device)
+    if out is None:
+        return np.full(p.F, INT32_MAX, np.int32)
+    return out.cpu().numpy()
+
+
+def make_sketcher(p, device="cuda"):
+    """fn(eff_fwd, eff_rc, n_kmers) -> (F,) int32 sketch table on
+    ``device``, closed over the params: 1-D uint8 code tensors (padded by
+    the caller) with n_kmers valid windows."""
+    kw = _param_kw(p)
+
+    def fn(eff_fwd, eff_rc, n_kmers):
+        f = torch.as_tensor(eff_fwd, device=device)[None]
+        r = torch.as_tensor(eff_rc, device=device)[None]
+        nk = torch.as_tensor(n_kmers, dtype=torch.int32,
+                             device=f.device).reshape(1)
+        return _codes_core(f, r, nk, **kw)[0]
+    return fn

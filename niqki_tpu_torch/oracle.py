@@ -225,3 +225,8 @@ def sketch_records(seqs, p: SketchParams) -> np.ndarray:
     for s in seqs:
         accumulate_sketch(sketch, s, p)
     return sketch
+
+
+def sketch_record(seq, p: SketchParams) -> np.ndarray:
+    """Sketch a single record (per-line entry semantics)."""
+    return sketch_records([seq], p)

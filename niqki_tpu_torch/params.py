@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+INT32_EMPTY = -1  # empty sketch-slot sentinel, the reference's -1
 DEFAULT_LF = 15
 DEFAULT_K = 31
 DEFAULT_W = 12

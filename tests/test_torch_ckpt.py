@@ -99,21 +99,48 @@ def test_np_pack_bitplanes_matches_every_pack(N, F, W):
 
 
 def test_np_pack_bitplanes_never_falls_back(monkeypatch):
-    """No silent numpy pack: a layout the native pack refuses, and a
-    missing native library, raise."""
-    m = np.zeros((8, 1024), np.int32)
-    with pytest.raises(ValueError, match="refuses"):
-        bcount.np_pack_bitplanes(m, 12, out=np.zeros((13, 8, 32), np.int32))
-    with pytest.raises(ValueError, match="refuses"):
-        bcount.np_pack_bitplanes(m, 12, out=np.zeros((13, 32, 8),
-                                                     np.uint32).swapaxes(1, 2))
-    with pytest.raises(ValueError, match="refuses"):
-        bcount.np_pack_bitplanes(m, 31)
+    """Where the native library is loaded and takes the layout, every row
+    chunk goes through the native pack and the numpy twin is never
+    called; F % 32 != 0 raises before either."""
+    rng = np.random.default_rng(12)
+    m = rng.integers(-3, 1 << 12, (300, 1024)).astype(np.int32)
+    want = bcount.np_pack_bitplanes_plain(m, 12)
+    chunks = []
+    orig = tnative.pack_bitplanes
+    monkeypatch.setattr(tnative, "pack_bitplanes",
+                        lambda rows, W, out: chunks.append(len(rows))
+                        or orig(rows, W, out))
+    monkeypatch.setattr(bcount, "np_pack_bitplanes_plain", None)
+    np.testing.assert_array_equal(
+        bcount.np_pack_bitplanes(m, 12, row_chunk=64), want)
+    assert sorted(chunks) == [44] + [64] * 4
     with pytest.raises(ValueError, match="F % 32"):
         bcount.np_pack_bitplanes(np.zeros((2, 48), np.int32), 12)
+
+
+def test_np_pack_bitplanes_numpy_fallback_matches_jax(monkeypatch):
+    """No fallback with other bits: where the native pack refuses the
+    layout (an int32 out, a transposed out, W = 31) or the native library
+    is missing, the numpy pack fills the same ``out`` with the bits of
+    niqki_tpu's np_pack_bitplanes on the same layout."""
+    rng = np.random.default_rng(11)
+    m = rng.integers(-3, 1 << 12, (8, 1024)).astype(np.int32)
+
+    def both(W, make_out):
+        got = bcount.np_pack_bitplanes(m, W, out=make_out())
+        want = jbcount.np_pack_bitplanes(m, W, out=make_out())
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got.view(np.uint32) if got.dtype == np.int32 else got,
+            bcount.np_pack_bitplanes_plain(m, W))
+
+    both(12, lambda: np.zeros((13, 8, 32), np.int32))
+    both(12, lambda: np.zeros((13, 32, 8), np.uint32).swapaxes(1, 2))
+    both(31, lambda: np.zeros((32, 8, 32), np.uint32))
     monkeypatch.setattr(tnative, "available", lambda: False)
-    with pytest.raises(RuntimeError, match="not loaded"):
-        bcount.np_pack_bitplanes(m, 12)
+    monkeypatch.setattr(native, "available", lambda: False)
+    both(12, lambda: np.zeros((13, 8, 32), np.uint32))
 
 
 # ---------------------------------------------------------------------------

@@ -586,3 +586,81 @@ def test_dryrun_multichip_on_card(card, card_mesh):
     kernels.reset_launches()
     dryrun_multichip(8)
     assert kernels.LAUNCHES["bcount"] > 0 and kernels.LAUNCHES["psort"] > 0
+
+
+def _ecoli_codes(n=4_640_000, seed=19):
+    """(eff_fwd, eff_rc) of a random E. coli-sized record with runs of N
+    (eff_rc zeroed there, as the encoders do)."""
+    rng = np.random.default_rng(seed)
+    f = rng.integers(0, 4, n).astype(np.uint8)
+    r = (3 - f).astype(np.uint8)
+    for at in rng.integers(0, n - 500, 20):
+        f[at:at + 500] = 0
+        r[at:at + 500] = 0
+    return f, r
+
+
+def test_sketch_codes_on_card_matches_plain(card, monkeypatch):
+    """sketch_codes of a 4.64 Mbp record on the card: one K1 launch at
+    1 x 2^23, the table equal to the same call with torch.sort in K1's
+    place (no K1 launch), to the CPU's plain route and to the host's
+    rolling sketch; dispatch_sketch leaves the table on the card."""
+    from niqki_tpu_torch import SketchParams, native
+    from niqki_tpu_torch.ops import sketch
+    p = SketchParams()
+    f, r = _ecoli_codes()
+    kernels.reset_launches()
+    got = sketch.sketch_codes(f, r, p, device=card)
+    assert kernels.LAUNCHES["psort"] == 1
+    dev = sketch.dispatch_sketch(f, r, p, device=card)
+    assert dev.device.type == "cuda"
+    np.testing.assert_array_equal(dev.cpu().numpy(), got)
+    monkeypatch.setattr(sketch, "sort_i32_pow2_batch", psort.sort_plain)
+    kernels.reset_launches()
+    np.testing.assert_array_equal(sketch.sketch_codes(f, r, p, card), got)
+    assert kernels.LAUNCHES["psort"] == 0
+    np.testing.assert_array_equal(sketch.sketch_codes(f, r, p, "cpu"), got)
+    np.testing.assert_array_equal(
+        native.sketch_codes_cpu(f, r, p.lF, p.K, p.W, p.H), got)
+
+
+@pytest.mark.parametrize("W", [8, 12])
+def test_short_last_block_on_card(card, monkeypatch, W):
+    """match_counts_planes on the card over blocks of 96 with a short last
+    one (96, 96, 17 queries): one K2 launch a block, each at its own B,
+    counts == the plain blocked count."""
+    from niqki_tpu_torch.ops import count
+    rng = np.random.default_rng(W)
+    F, G = 4096, 1000
+    g = rng.integers(0, 1 << W, (G, F)).astype(np.int32)
+    xp = bcount.build_index_planes(g, W, card)
+    q = g[:209].copy()
+    q[rng.random(q.shape) < 0.1] = -3
+    q[50] = -3
+    monkeypatch.setattr(bcount, "BLOCK_Q", 96)
+    kernels.reset_launches()
+    got = bcount.match_counts_planes(q, xp, G, W)
+    assert kernels.LAUNCHES["bcount"] == 3
+    want = count.match_counts(torch.from_numpy(q).to(card),
+                              torch.from_numpy(g).to(card)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[50] == 0).all()
+
+
+def test_small_wrappers_on_card(card):
+    """match_counts_bitplane == the plain blocked count, and sort_i32_pow2
+    == torch.sort, on the card."""
+    from niqki_tpu_torch.ops import count
+    rng = np.random.default_rng(4)
+    g = rng.integers(0, 4096, (300, 4096)).astype(np.int32)
+    q = g[:50].copy()
+    q[rng.random(q.shape) < 0.2] = 7
+    kernels.reset_launches()
+    got = bcount.match_counts_bitplane(q, g, 12, device=card)
+    assert kernels.LAUNCHES["bcount"] == 1
+    want = count.match_counts(torch.from_numpy(q).to(card),
+                              torch.from_numpy(g).to(card)).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, 1 << 17).astype(
+        np.int32)).to(card)
+    assert torch.equal(psort.sort_i32_pow2(x), torch.sort(x).values)
