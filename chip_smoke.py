@@ -968,7 +968,6 @@ def phase_matrix(d: str, fof: str, spy: "Spy", S_: int, phase: int):
     from niqki_tpu_torch import SketchParams, cli, kernels, native
     p = SketchParams(lF=S_, min_fract=0.05)
     out = os.path.join(d, f"m{S_}.gz")
-    os.environ["NIQKI_TPU_MATRIX_STATS"] = "1"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spy.times.clear()
@@ -978,7 +977,6 @@ def phase_matrix(d: str, fof: str, spy: "Spy", S_: int, phase: int):
     launches = dict(kernels.LAUNCHES)
     wall = time.time() - t
     WALLS[phase] = wall
-    del os.environ["NIQKI_TPU_MATRIX_STATS"]
     require(rc == 0, "-M rc")
     idx = spy.index
     require(idx is not None and idx.G == G, "-M did not index G genomes")
@@ -1234,7 +1232,6 @@ def run_config5(d: str, fa: str, spy: "Spy", sym: str) -> tuple[dict, object]:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     os.environ["NIQKI_TPU_MATRIX_SYM"] = sym
-    os.environ["NIQKI_TPU_MATRIX_STATS"] = "1"
     spy.reset()
     kernels.reset_launches()
     t = time.time()
@@ -1244,7 +1241,6 @@ def run_config5(d: str, fa: str, spy: "Spy", sym: str) -> tuple[dict, object]:
         launches = dict(kernels.LAUNCHES)
     finally:
         del os.environ["NIQKI_TPU_MATRIX_SYM"]
-        del os.environ["NIQKI_TPU_MATRIX_STATS"]
     wall = time.time() - t
     require(rc == 0, f"config 5 -M rc under SYM={sym}")
     idx = spy.index
@@ -1969,7 +1965,6 @@ def phase17_sweep(d: str, fa: str, sha_full: str, spy: "Spy") -> dict:
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    os.environ["NIQKI_TPU_MATRIX_STATS"] = "1"
     spy.reset()
     kernels.reset_launches()
     t = time.time()
@@ -1986,7 +1981,6 @@ def phase17_sweep(d: str, fa: str, sha_full: str, spy: "Spy") -> dict:
                "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
                "sha256": sha256(out)}
     finally:
-        del os.environ["NIQKI_TPU_MATRIX_STATS"]
         spy.reset()
         if os.path.exists(out):
             os.remove(out)

@@ -23,13 +23,12 @@ NIQKI_TPU_MATRIX_SYM says, as the JAX package routes it.
 from __future__ import annotations
 
 import os
-import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from . import hostmem, native
+from .debug import carry, span
 from .index import SketchIndex, hits_from_counts_batch
 from .io.fasta import exists, read_fof, read_query_fof, read_records
 from .io.writers import (GzTextWriter, write_binary_hits, write_matrix_header,
@@ -53,17 +52,26 @@ def _fof_entries(fof_path: str):
 
 
 def insert_fof_whole(index: SketchIndex, fof_path: str) -> None:
-    entries = list(_fof_entries(fof_path))
-    sketches = index.sketch_files([p for _, p in entries])
-    for (name, _), sk in zip(entries, sketches):
-        index.insert_sketch(sk, name)
+    with span("engine.insert") as s:
+        entries = list(_fof_entries(fof_path))
+        if s:
+            s.set(records=len(entries))
+        sketches = index.sketch_files([p for _, p in entries])
+        with span("index.insert_rows", 2) as r:
+            if r:
+                r.set(rows=len(sketches))
+            for (name, _), sk in zip(entries, sketches):
+                index.insert_sketch(sk, name)
 
 
 def insert_file_lines(index: SketchIndex, path: str) -> None:
     """-i: each record of one FASTA/FASTQ file is an entry. (The reference
     chdirs to the file's directory and opens its basename there: the same
     file.)"""
-    index.insert_file_lines(path)
+    with span("engine.insert") as s:
+        gids = index.insert_file_lines(path)
+        if s:
+            s.set(records=len(gids))
 
 
 def _stack_sketches(sks) -> np.ndarray:
@@ -82,8 +90,17 @@ def query_fof_whole(index: SketchIndex, fof_path: str, out: GzTextWriter,
     across processes, where sketching and counting both call
     collectives, which every rank must call in one order, the chunks
     sketch and count in turn on this thread."""
-    lines = [ln for ln in read_query_fof(fof_path) if exists(ln)]
-    chunks = [lines[lo:lo + batch] for lo in range(0, len(lines), batch)]
+    with span("engine.query") as s:
+        lines = [ln for ln in read_query_fof(fof_path) if exists(ln)]
+        chunks = [lines[lo:lo + batch] for lo in range(0, len(lines), batch)]
+        if s:
+            s.set(queries=len(lines), chunks=len(chunks))
+        _query_chunks(index, chunks, out, pretty)
+
+
+def _query_chunks(index: SketchIndex, chunks, out: GzTextWriter,
+                  pretty: bool) -> None:
+    """query_fof_whole's chunks, sketched ahead on a prefetch thread."""
 
     def process(chunk, sks):
         if pretty and sks:
@@ -106,10 +123,12 @@ def query_fof_whole(index: SketchIndex, fof_path: str, out: GzTextWriter,
             process(chunk, index.sketch_files(chunk))
         return
     with ThreadPoolExecutor(1) as pre:
-        fut = pre.submit(index.sketch_files, chunks[0]) if chunks else None
+        sketch = carry(index.sketch_files)
+        fut = pre.submit(sketch, chunks[0]) if chunks else None
         for i, chunk in enumerate(chunks):
-            sks = fut.result()
-            fut = pre.submit(index.sketch_files, chunks[i + 1]) \
+            with span("engine.sketch_wait", 2):
+                sks = fut.result()
+            fut = pre.submit(sketch, chunks[i + 1]) \
                 if i + 1 < len(chunks) else None
             process(chunk, sks)
 
@@ -223,30 +242,35 @@ def _sym_mode() -> str:
     return sym
 
 
-def _run_ahead(n: int, dispatch, fetch, emit) -> dict:
+def _run_ahead(n: int, dispatch, fetch, emit) -> None:
     """Blocks 0..n-1: block i+1 and i+2 (NIQKI_TPU_MATRIX_AHEAD) are
     dispatched before block i is emitted, and each block's device to host
     copy runs on a fetch thread, so the card counts while the host
-    formats. Returns the seconds spent waiting, dispatching and
-    emitting."""
-    stats = {"wait": 0.0, "emit": 0.0, "disp": 0.0}
+    formats. The spans ``sweep.dispatch``, ``sweep.wait`` and
+    ``sweep.emit`` (each with its ``block``) time each block's steps."""
     ahead = max(1, int(os.environ.get("NIQKI_TPU_MATRIX_AHEAD", "2")))
+
+    def step(name: str, i: int):
+        s = span(name, 2)
+        if s:
+            s.set(block=i)
+        return s
+
     with ThreadPoolExecutor(1) as fetcher:
-        pending = [fetcher.submit(fetch, dispatch(i))
-                   for i in range(min(ahead, n))]
+        pending = []
+        for i in range(min(ahead, n)):
+            with step("sweep.dispatch", i):
+                d = dispatch(i)
+            pending.append(fetcher.submit(carry(fetch), d))
         for i in range(n):
-            t0 = time.time()
-            res = pending.pop(0).result()
-            stats["wait"] += time.time() - t0
+            with step("sweep.wait", i):
+                res = pending.pop(0).result()
             if i + ahead < n:
-                t0 = time.time()
-                d = dispatch(i + ahead)
-                stats["disp"] += time.time() - t0
-                pending.append(fetcher.submit(fetch, d))
-            t0 = time.time()
-            emit(i, res)
-            stats["emit"] += time.time() - t0
-    return stats
+                with step("sweep.dispatch", i + ahead):
+                    d = dispatch(i + ahead)
+                pending.append(fetcher.submit(carry(fetch), d))
+            with step("sweep.emit", i):
+                emit(i, res)
 
 
 def _block_starts(G: int, Gp: int, B: int) -> list[tuple[int, int, int, int]]:
@@ -274,10 +298,8 @@ def _query_matrix_selfjoin_mesh(index: SketchIndex, out: GzTextWriter,
     collective of the sweep is called from that one thread, in block
     order; rows are written by the parallel formatter, as the
     single-device sweeps write them. Returns the sweep's stats (blocks,
-    tp, seconds waiting and emitting, total seconds, dense block
-    re-fetches), or False where the mesh index does not route the planes
-    kernel (callers take the dense loop). NIQKI_TPU_MATRIX_STATS prints
-    them as the ``mesh sweep:`` line."""
+    tp, dense block re-fetches), or False where the mesh index does not
+    route the planes kernel (callers take the dense loop)."""
     p = index.params
     sharded = index._sharded_for(mesh)
     if sharded._kernel != "planes":
@@ -314,21 +336,11 @@ def _query_matrix_selfjoin_mesh(index: SketchIndex, out: GzTextWriter,
                               lo)
 
     pfmt = _ParallelMatrixFmt(index.names, p.F, p.min_score)
-    t_start = time.time()
     try:
-        run = _run_ahead(len(starts), lambda i: i, fetch, emit)
+        _run_ahead(len(starts), lambda i: i, fetch, emit)
     finally:
         pfmt.close()
-    stats = {"blocks": len(starts), "tp": sharded._tp, "wait": run["wait"],
-             "emit": run["emit"], "refetch": refetch,
-             "total": time.time() - t_start}
-    if os.environ.get("NIQKI_TPU_MATRIX_STATS"):
-        print(f"mesh sweep: blocks={len(starts)} tp={sharded._tp} "
-              f"total {stats['total']:.1f}s "
-              f"device-wait {stats['wait']:.1f}s emit {stats['emit']:.1f}s "
-              f"dense re-fetches {refetch}",
-              file=sys.stderr, flush=True)
-    return stats
+    return {"blocks": len(starts), "tp": sharded._tp, "refetch": refetch}
 
 
 def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter):
@@ -375,14 +387,9 @@ def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter):
                              starts[i], cap, G=G, Gp=Gp)
 
     try:
-        stats = _run_ahead(len(starts), dispatch, fetch, emit)
+        _run_ahead(len(starts), dispatch, fetch, emit)
     finally:
         pfmt.close()
-    if os.environ.get("NIQKI_TPU_MATRIX_STATS"):
-        print(f"full sweep: blocks={len(starts)} "
-              f"device-wait {stats['wait']:.1f}s "
-              f"dispatch {stats['disp']:.1f}s emit {stats['emit']:.1f}s",
-              file=sys.stderr, flush=True)
     return True
 
 
@@ -503,16 +510,13 @@ def _query_matrix_selfjoin_sym(index: SketchIndex, out: GzTextWriter) -> dict:
     its mirrors come from the dense row. Byte-identical with the full sweep
     and the dense loop.
 
-    Returns the sweep's stats, printed as the JAX package's ``sym sweep:``
-    line plus the peak mirror bytes under NIQKI_TPU_MATRIX_STATS: blocks
-    N, window columns summed over the blocks, dense re-fetches, mirror
-    entries and their peak bytes, and the wait / dispatch / emit / total
-    seconds."""
+    Returns the sweep's stats: blocks N, window columns summed over the
+    blocks, dense re-fetches, mirror entries and their peak bytes
+    (``_run_ahead``'s spans time each block)."""
     p = index.params
     min_score = p.min_score
     if min_score < 1:
         raise ValueError("the symmetric sweep needs min_score >= 1")
-    t_start = time.time()
     xp = index._planes()
     G, Gp = index.G, xp.shape[1]
     B = min(int(os.environ.get("NIQKI_TPU_MATRIX_BLOCK",
@@ -605,19 +609,12 @@ def _query_matrix_selfjoin_sym(index: SketchIndex, out: GzTextWriter) -> dict:
         _write_rows(out, fmt, pfmt, av, ag, over, dense_rows, lo)
 
     try:
-        stats = _run_ahead(N, dispatch, fetch, emit)
+        _run_ahead(N, dispatch, fetch, emit)
     finally:
         pfmt.close()
-    stats.update(N=N, window_cols=sum(widths) * B, refetch=refetch,
-                 mirror_entries=mirrors.entries,
-                 peak_mirror_bytes=mirrors.peak,
-                 total=time.time() - t_start)
-    if os.environ.get("NIQKI_TPU_MATRIX_STATS"):
-        print(f"sym sweep: N={N} total {stats['total']:.1f}s "
-              f"device-wait {stats['wait']:.1f}s "
-              f"dispatch {stats['disp']:.1f}s emit {stats['emit']:.1f}s "
-              f"peak mirror {mirrors.peak} B", file=sys.stderr, flush=True)
-    return stats
+    return dict(N=N, window_cols=sum(widths) * B, refetch=refetch,
+                mirror_entries=mirrors.entries,
+                peak_mirror_bytes=mirrors.peak)
 
 
 def query_matrix(index: SketchIndex, out: GzTextWriter,

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import hostmem, native, oracle
-from .debug import dbg
+from .debug import carry, dbg, span
 from .dumpfmt import load_dump, save_dump
 from .io.fasta import read_records
 from .ops import bcount, mxucount, pcount
@@ -84,6 +84,16 @@ def hits_from_counts_batch(counts: np.ndarray, min_score: int
     nhits = (c >= min_score).sum(axis=1)
     return [[(int(c[b, g]), int(g)) for g in order[b, :nhits[b]]]
             for b in range(B)]
+
+
+def _collect(dev: torch.Tensor) -> np.ndarray:
+    """A batch of device sketch tables on the host (the copy waits for
+    the batch's kernels)."""
+    with span("k1.collect", 2) as sp:
+        host = dev.cpu().numpy()
+        if sp:
+            sp.set(bytes=host.nbytes)
+    return host
 
 
 class SketchIndex:
@@ -150,7 +160,7 @@ class SketchIndex:
         rows: list = [None] * len(records)
         for chunk, dev in dispatch_sketch_packed_batch(records, self.params,
                                                        self.device):
-            host = dev.cpu().numpy()
+            host = _collect(dev)
             for row, i in enumerate(chunk):
                 rows[i] = host[row]
         return rows
@@ -161,7 +171,11 @@ class SketchIndex:
         p = self.params
         if self.backend == "numpy":
             return oracle.sketch_records(seqs, p)
-        recs = [pack_codes(*oracle.encode_record(s, p.K), p.K) for s in seqs]
+        with span("index.encode", 2) as sp:
+            recs = [pack_codes(*oracle.encode_record(s, p.K), p.K)
+                    for s in seqs]
+            if sp:
+                sp.set(records=len(recs), bases=sum(r[1] for r in recs))
         return self._finalize_tables(self._device_tables(recs))
 
     def _host_sketch_route(self) -> bool:
@@ -191,11 +205,17 @@ class SketchIndex:
         skipped with a warning, as the reference skips missing entries."""
         p = self.params
         try:
-            if native.available():
-                return [(w, n, e) for _, w, n, e
-                        in native.read_packed_records(path, p.K)]
-            return [pack_codes(*oracle.encode_record(s, p.K), p.K)
-                    for _, s in read_records(path, p.K)]
+            with span("index.read", 2) as sp:
+                if native.available():
+                    recs = [(w, n, e) for _, w, n, e
+                            in native.read_packed_records(path, p.K)]
+                else:
+                    recs = [pack_codes(*oracle.encode_record(s, p.K), p.K)
+                            for _, s in read_records(path, p.K)]
+                if sp:
+                    sp.set(files=1, records=len(recs),
+                           bases=sum(r[1] for r in recs))
+            return recs
         except (OSError, EOFError, zlib.error) as e:
             print(f"Warning: skipping unreadable file '{path}': {e}",
                   file=sys.stderr)
@@ -230,7 +250,7 @@ class SketchIndex:
         records without k-mers get an empty sketch."""
         out: list = [None] * n
         for chunk, dev in batches:
-            host = dev.cpu().numpy()
+            host = _collect(dev)
             for row, i in enumerate(chunk):
                 out[i] = self._finalize_tables([host[row]])
         for i, v in enumerate(out):
@@ -243,8 +263,11 @@ class SketchIndex:
         rolling sketcher plus densify, one native call for the group;
         bit-exact with the device route."""
         p = self.params
-        return list(native.sketch_packed_batch(
-            recs, p.lF, p.K, p.W, p.H, p.mask_M, p.maximal_remainder))
+        with span("stream.host_sketch", 2) as sp:
+            if sp:
+                sp.set(records=len(recs))
+            return list(native.sketch_packed_batch(
+                recs, p.lF, p.K, p.W, p.H, p.mask_M, p.maximal_remainder))
 
     def _sketch_stream(self, rec_iter, chunk_records: int = 1 << 15):
         """Yield (records_chunk, sketches) pairs from a packed-record
@@ -268,16 +291,21 @@ class SketchIndex:
 
         def take_chunk():
             part, bases = [], 0
-            for rec in rec_iter:
-                part.append(rec)
-                bases += rec[2]
-                if len(part) >= chunk_records or bases >= self.CHUNK_BASES:
-                    break
+            with span("stream.read", 2) as sp:
+                for rec in rec_iter:
+                    part.append(rec)
+                    bases += rec[2]
+                    if len(part) >= chunk_records or \
+                            bases >= self.CHUNK_BASES:
+                        break
+                if sp:
+                    sp.set(records=len(part), bases=bases)
             return part
 
         try:
             while True:
                 part = take_chunk()
+                host_task = carry(self._host_sketch_packed)
                 work = None
                 if part:
                     recs = [r[1:] for r in part]
@@ -295,8 +323,7 @@ class SketchIndex:
                             min_pad=self.LINES_MIN_PAD)
                     grp = max(64, -(-len(short) // 32))
                     futs = [(short[lo:lo + grp], pool.submit(
-                        self._host_sketch_packed,
-                        [recs[i] for i in short[lo:lo + grp]]))
+                        host_task, [recs[i] for i in short[lo:lo + grp]]))
                         for lo in range(0, len(short), grp)]
                     work = (part, batches, futs)
                 if pending is not None:
@@ -305,9 +332,12 @@ class SketchIndex:
                         sks = self._collect_packed(len(ppart), pbatches)
                     else:  # every row comes from the pool
                         sks = [None] * len(ppart)
-                    for idxs, fut in pfuts:
-                        for i, sk in zip(idxs, fut.result()):
-                            sks[i] = sk
+                    with span("stream.wait", 2) as sp:
+                        if sp:
+                            sp.set(tasks=len(pfuts))
+                        for idxs, fut in pfuts:
+                            for i, sk in zip(idxs, fut.result()):
+                                sks[i] = sk
                     yield ppart, sks
                 if not part:
                     return
@@ -326,34 +356,41 @@ class SketchIndex:
         gids = []
         for part, sks in self._sketch_stream(
                 self._iter_packed_with_headers(path), chunk_records):
-            gids.extend(self.insert_sketch(sk, r[0])
-                        for r, sk in zip(part, sks))
+            with span("index.insert_rows", 2) as sp:
+                if sp:
+                    sp.set(rows=len(part))
+                gids.extend(self.insert_sketch(sk, r[0])
+                            for r, sk in zip(part, sks))
         return gids
 
     def _finalize_tables(self, tables) -> np.ndarray:
         """Sequential per-record min-merge + densify (densified fillers of
         earlier records take part in later mins, as in the reference)."""
-        sketch = np.full(self.params.F, -1, dtype=np.int32)
-        for t in tables:
-            if t is None:
-                continue
-            table = np.asarray(t)
-            if table.dtype == np.int16:  # narrow wire, -1 sentinel
-                table = np.where(table == -1, INT32_MAX,
-                                 table.astype(np.int32))
-            cur = np.where(sketch == -1, INT32_MAX, sketch)
-            merged = np.minimum(cur, table)
-            sketch = np.where(merged == INT32_MAX, -1, merged).astype(np.int32)
-            _densify(sketch, self.params)
-        return sketch
+        with span("index.finalize", 2) as sp:
+            if sp:
+                sp.set(records=len(tables))
+            sketch = np.full(self.params.F, -1, dtype=np.int32)
+            for t in tables:
+                if t is None:
+                    continue
+                table = np.asarray(t)
+                if table.dtype == np.int16:  # narrow wire, -1 sentinel
+                    table = np.where(table == -1, INT32_MAX,
+                                     table.astype(np.int32))
+                cur = np.where(sketch == -1, INT32_MAX, sketch)
+                merged = np.minimum(cur, table)
+                sketch = np.where(merged == INT32_MAX, -1,
+                                  merged).astype(np.int32)
+                _densify(sketch, self.params)
+            return sketch
 
     def _sketch_files_host(self, paths, io_threads: int | None):
         """Whole-file sketches on the host sketcher: each file's read and
         sketch chain in one pool task (both release the GIL)."""
         io_threads = io_threads or min(8, 2 * (os.cpu_count() or 1))
         with ThreadPoolExecutor(max_workers=io_threads) as pool:
-            futs = [pool.submit(lambda pa=pa: self._host_sketch_whole(
-                        self._load_packed(pa))) for pa in paths]
+            futs = [pool.submit(carry(lambda pa=pa: self._host_sketch_whole(
+                        self._load_packed(pa)))) for pa in paths]
             return [f.result() for f in futs]
 
     def sketch_files(self, paths, window: int = 256,
@@ -366,6 +403,12 @@ class SketchIndex:
         overrides ``window``; NIQKI_TPU_SKETCH=host takes the host
         sketcher."""
         paths = list(paths)
+        with span("index.sketch_files") as sp:
+            if sp:
+                sp.set(files=len(paths))
+            return self._sketch_files(paths, window, io_threads, sp)
+
+    def _sketch_files(self, paths, window: int, io_threads, sp) -> list:
         if self.backend == "numpy":
             return [self.sketch_file(p) for p in paths]
         if self._host_sketch_route():
@@ -375,12 +418,13 @@ class SketchIndex:
             window = max(1, int(env_w))
         out: list = [None] * len(paths)
         io_threads = io_threads or min(8, os.cpu_count() or 1)
+        load = carry(self._load_packed)
 
         def collect(pend) -> None:
             w0, rec_counts, batches = pend
             rows: dict[int, np.ndarray] = {}
             for chunk, dev in batches:
-                host = dev.cpu().numpy()
+                host = _collect(dev)
                 for row, reci in enumerate(chunk):
                     rows[reci] = host[row]
             k = 0
@@ -390,9 +434,10 @@ class SketchIndex:
                 k += cnt
 
         pending = None
+        n_records = 0
         with ThreadPoolExecutor(max_workers=io_threads) as pool:
             def submit(w0):
-                return (w0, [pool.submit(self._load_packed, pa)
+                return (w0, [pool.submit(load, pa)
                              for pa in paths[w0:w0 + window]])
 
             sub = submit(0) if paths else None
@@ -402,6 +447,7 @@ class SketchIndex:
                 nxt = w0 + window
                 sub = submit(nxt) if nxt < len(paths) else None
                 records = [rec for recs in encs for rec in recs]
+                n_records += len(records)
                 batches = dispatch_sketch_packed_batch(records, self.params,
                                                        self.device)
                 dbg(f"window @{w0}: {len(encs)} files, {len(records)} "
@@ -411,6 +457,8 @@ class SketchIndex:
                 pending = (w0, [len(recs) for recs in encs], batches)
             if pending is not None:
                 collect(pending)
+        if sp:
+            sp.set(records=n_records)
         return out
 
     # ------------------------------------------------------------------
@@ -443,12 +491,15 @@ class SketchIndex:
             if self._rows:
                 prev = self._mat
                 n_prev = len(prev) if prev is not None else 0
-                mat = hostmem.big_empty(
-                    (n_prev + len(self._rows), self.params.F), np.int32)
-                if n_prev:
-                    mat[:n_prev] = prev
-                for i, r in enumerate(self._rows):
-                    mat[n_prev + i] = r
+                with span("index.matrix") as sp:
+                    mat = hostmem.big_empty(
+                        (n_prev + len(self._rows), self.params.F), np.int32)
+                    if n_prev:
+                        mat[:n_prev] = prev
+                    for i, r in enumerate(self._rows):
+                        mat[n_prev + i] = r
+                    if sp:
+                        sp.set(rows=len(self._rows), bytes=mat.nbytes)
                 self._mat = mat
                 self._rows = []
             elif self._mat is None:
@@ -466,23 +517,26 @@ class SketchIndex:
         slots, and the out-of-range values the -G stale constants can
         produce)."""
         mat = self.matrix()
-        out = hostmem.big_empty(mat.shape, np.int32)
-        hi_fp = self.params.fingerprint_range
-        B = 1 << 14
+        with span("index.stored") as sp:
+            if sp:
+                sp.set(bytes=mat.nbytes)
+            out = hostmem.big_empty(mat.shape, np.int32)
+            hi_fp = self.params.fingerprint_range
+            B = 1 << 14
 
-        def fix(lo):
-            blk = mat[lo:lo + B]
-            dst = out[lo:lo + B]
-            np.copyto(dst, blk)
-            dst[(blk < 0) | (blk >= hi_fp)] = -2
+            def fix(lo):
+                blk = mat[lo:lo + B]
+                dst = out[lo:lo + B]
+                np.copyto(dst, blk)
+                dst[(blk < 0) | (blk >= hi_fp)] = -2
 
-        blocks = range(0, len(mat), B)
-        if len(mat) > B:  # numpy releases the GIL on the copies/compares
-            with ThreadPoolExecutor(min(4, os.cpu_count() or 1)) as ex:
-                list(ex.map(fix, blocks))
-        else:
-            for lo in blocks:
-                fix(lo)
+            blocks = range(0, len(mat), B)
+            if len(mat) > B:  # numpy releases the GIL on the copies/compares
+                with ThreadPoolExecutor(min(4, os.cpu_count() or 1)) as ex:
+                    list(ex.map(fix, blocks))
+            else:
+                for lo in blocks:
+                    fix(lo)
         return out
 
     def _stored_cached(self) -> np.ndarray:
@@ -644,9 +698,16 @@ class SketchIndex:
         if over.mean() > 0.25:
             # hit-saturated batch: one dense pass costs less than per-row
             # re-fetches
-            return fmt.format(dense_fn(q), headers)
+            with span("k2.refetch", 2) as sp:
+                if sp:
+                    sp.set(rows=len(q))
+                dense = dense_fn(q)
+            return fmt.format(dense, headers)
         dense_rows = np.nonzero(over)[0]
-        dense = dense_fn(q[dense_rows])
+        with span("k2.refetch", 2) as sp:
+            if sp:
+                sp.set(rows=len(dense_rows))
+            dense = dense_fn(q[dense_rows])
         parts, di = [], 0
         for r in range(len(q)):
             if over[r]:

@@ -20,6 +20,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import native
+from ..debug import carry, span
 
 
 def format_double(v: float) -> str:
@@ -58,19 +59,26 @@ class GzTextWriter:
 
     @staticmethod
     def _member(data, level: int) -> bytes:
-        out = native.gzip_member(data, level)
-        if out is not None:
-            return out
-        co = zlib.compressobj(level, zlib.DEFLATED, 31)  # gzip wrapper
-        return co.compress(data) + co.flush()
+        with span("writer.deflate", 2) as sp:
+            if sp:
+                sp.set(bytes=len(data))
+            out = native.gzip_member(data, level)
+            if out is not None:
+                return out
+            co = zlib.compressobj(level, zlib.DEFLATED, 31)  # gzip wrapper
+            return co.compress(data) + co.flush()
 
     def _drain(self, all_: bool = False) -> None:
         while self._futs and (all_ or len(self._futs) > 16
                               or self._futs[0].done()):
-            self._f.write(self._futs.popleft().result())
+            fut = self._futs.popleft()
+            if not fut.done():
+                with span("writer.wait", 2):
+                    fut.result()
+            self._f.write(fut.result())
 
     def _submit(self, blk) -> None:
-        self._futs.append(self._pool.submit(self._member, blk,
+        self._futs.append(self._pool.submit(carry(self._member), blk,
                                             self._level))
         self._members += 1
         self._drain()
@@ -98,14 +106,16 @@ class GzTextWriter:
     def close(self) -> None:
         if self._f is None:
             return
-        tail = b"".join(self._buf)
-        self._buf = []
-        if tail or self._members == 0:   # an empty file still gets a member
-            self._submit(tail)
-        self._drain(all_=True)
-        self._pool.shutdown()
-        self._f.close()
-        self._f = None
+        with span("writer.close", 2):
+            tail = b"".join(self._buf)
+            self._buf = []
+            # an empty file still gets a member
+            if tail or self._members == 0:
+                self._submit(tail)
+            self._drain(all_=True)
+            self._pool.shutdown()
+            self._f.close()
+            self._f = None
 
     def __enter__(self):
         return self

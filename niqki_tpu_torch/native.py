@@ -29,6 +29,7 @@ from typing import Iterator, Tuple
 import numpy as np
 
 from . import hostmem
+from .debug import span
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
@@ -539,43 +540,49 @@ class HitsFormatter(_Names):
     ``io.writers.write_pretty_hits`` over ``index.hits_from_counts``."""
 
     def format(self, counts: np.ndarray, headers: list[str]) -> bytes:
-        counts = np.ascontiguousarray(counts, np.int32)
-        B, G = counts.shape
-        if G != self.G or B != len(headers):
-            raise ValueError(f"counts {counts.shape} for {self.G} names and "
-                             f"{len(headers)} headers")
-        hblob, hoff = self._headers(headers)
-        nhits = int((counts >= self.min_score).sum())
-        cap = len(hblob) + 2 * B + nhits * (self._max_name + 16) + 64
-        out = self._obuf.get(cap)
-        n = self._lib.nq_format_hits(counts, B, G, self.min_score, self.F,
-                                     self._names, self._name_off, hblob,
-                                     hoff, out, cap)
-        if n < 0:
-            raise RuntimeError("nq_format_hits capacity underestimated")
-        return ctypes.string_at(out, n)
+        with span("emit.format", 2) as sp:
+            counts = np.ascontiguousarray(counts, np.int32)
+            B, G = counts.shape
+            if G != self.G or B != len(headers):
+                raise ValueError(f"counts {counts.shape} for {self.G} names "
+                                 f"and {len(headers)} headers")
+            hblob, hoff = self._headers(headers)
+            nhits = int((counts >= self.min_score).sum())
+            cap = len(hblob) + 2 * B + nhits * (self._max_name + 16) + 64
+            out = self._obuf.get(cap)
+            n = self._lib.nq_format_hits(counts, B, G, self.min_score, self.F,
+                                         self._names, self._name_off, hblob,
+                                         hoff, out, cap)
+            if n < 0:
+                raise RuntimeError("nq_format_hits capacity underestimated")
+            if sp:
+                sp.set(rows=len(headers), bytes=n)
+            return ctypes.string_at(out, n)
 
     def format_sparse(self, vals: np.ndarray, idx: np.ndarray,
                       headers: list[str]) -> bytes:
         """Rows from top-k (vals, idx) (B, cap) survivors: byte-identical
         with format() whenever each row's survivors fit in cap (callers
         re-fetch overflowing rows dense)."""
-        vals = np.ascontiguousarray(vals, np.int32)
-        idx = np.ascontiguousarray(idx, np.int32)
-        B, kcap = vals.shape
-        if B != len(headers):
-            raise ValueError(f"{B} rows for {len(headers)} headers")
-        hblob, hoff = self._headers(headers)
-        nhits = int((vals >= self.min_score).sum())
-        cap = len(hblob) + 2 * B + nhits * (self._max_name + 16) + 64
-        out = self._obuf.get(cap)
-        n = self._lib.nq_format_hits_sparse(
-            vals, idx, B, kcap, self.G, self.min_score, self.F,
-            self._names, self._name_off, hblob, hoff, out, cap)
-        if n < 0:
-            raise RuntimeError("nq_format_hits_sparse failed: capacity or "
-                               "survivor contract violated")
-        return ctypes.string_at(out, n)
+        with span("emit.format", 2) as sp:
+            vals = np.ascontiguousarray(vals, np.int32)
+            idx = np.ascontiguousarray(idx, np.int32)
+            B, kcap = vals.shape
+            if B != len(headers):
+                raise ValueError(f"{B} rows for {len(headers)} headers")
+            hblob, hoff = self._headers(headers)
+            nhits = int((vals >= self.min_score).sum())
+            cap = len(hblob) + 2 * B + nhits * (self._max_name + 16) + 64
+            out = self._obuf.get(cap)
+            n = self._lib.nq_format_hits_sparse(
+                vals, idx, B, kcap, self.G, self.min_score, self.F,
+                self._names, self._name_off, hblob, hoff, out, cap)
+            if n < 0:
+                raise RuntimeError("nq_format_hits_sparse failed: capacity "
+                                   "or survivor contract violated")
+            if sp:
+                sp.set(rows=len(headers), bytes=n)
+            return ctypes.string_at(out, n)
 
 
 class MatrixFormatter(_Names):

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels, native
+from ..debug import span
 from ..hostmem import big_copy, big_empty, pad_rows
 
 TILE_G = 128        # index rows are padded to a multiple of this
@@ -88,16 +89,19 @@ def build_index_planes(mat: np.ndarray, W: int, device,
     Rows ship and pack in chunks, so the unpacked form on the device stays
     one chunk. ``sanitized=True`` promises values in [-2, 2^W), which makes
     an int16 wire lossless for W <= 14."""
-    m = pad_rows(np.asarray(mat), TILE_G)
-    if row_chunk is None:
-        row_chunk = max(TILE_G, (1 << 26) // m.shape[1])
-    if sanitized and W <= 14 and m.dtype != np.int16:
-        m = big_copy(m, np.int16)
-    chunks = [pack_bitplanes(torch.from_numpy(
-                  np.ascontiguousarray(m[lo:lo + row_chunk])).to(device),
-                  W=W, query=False)
-              for lo in range(0, m.shape[0], row_chunk)]
-    return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
+    with span("planes.build") as sp:
+        m = pad_rows(np.asarray(mat), TILE_G)
+        if row_chunk is None:
+            row_chunk = max(TILE_G, (1 << 26) // m.shape[1])
+        if sanitized and W <= 14 and m.dtype != np.int16:
+            m = big_copy(m, np.int16)
+        if sp:
+            sp.set(bytes=m.nbytes)
+        chunks = [pack_bitplanes(torch.from_numpy(
+                      np.ascontiguousarray(m[lo:lo + row_chunk])).to(device),
+                      W=W, query=False)
+                  for lo in range(0, m.shape[0], row_chunk)]
+        return chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=1)
 
 
 def np_pack_bitplanes(mat: np.ndarray, W: int,
@@ -328,6 +332,15 @@ def match_counts_planes(q_np: np.ndarray, xp: torch.Tensor, G: int, W: int,
     cap largest counts, count-descending, with sub-min_score entries masked
     to (0, 0). Rows whose vals[:, -1] >= min_score may have more survivors
     than cap; the caller re-fetches them dense."""
+    with span("k2.count") as sp:
+        if sp:
+            sp.set(Q=len(q_np), G=G, lanes=int(xp.shape[2]))
+        return _match_counts_planes(q_np, xp, G, W, sanitized, topk,
+                                    min_score)
+
+
+def _match_counts_planes(q_np, xp, G: int, W: int, sanitized: bool,
+                         topk: int | None, min_score: int):
     dt = np.int16 if W <= 14 else np.int32
     q = np.asarray(q_np)
     if q.dtype not in (np.int16, np.int32, np.int64):

@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..debug import span
 from .psort import sort_i32_pow2_batch
 
 INT32_MAX = int(np.iinfo(np.int32).max)
@@ -259,6 +260,15 @@ def dispatch_sketch_packed_batch(records, p, device,
     an active mesh (``parallel.auto.active_mesh(device)``) each batch is
     split over every mesh device (rows padded to 2 x the device count) and
     the tables come back on ``device`` in row order."""
+    with span("k1.dispatch", 2) as sp:
+        out = _dispatch_packed(records, p, device, max_elems, min_pad)
+        if sp:
+            sp.set(batches=len(out),
+                   rows=sum(int(d.shape[0]) for _, d in out))
+    return out
+
+
+def _dispatch_packed(records, p, device, max_elems: int, min_pad: int):
     from ..parallel.auto import active_mesh
     groups: dict[int, list[int]] = {}
     for i, (_, n, _e) in enumerate(records):

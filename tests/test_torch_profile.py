@@ -95,3 +95,48 @@ def test_debug_env_traces_the_sketch_windows(tmp_path):
     res = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0 and "window @" not in res.stderr
+
+
+def test_cli_profile_merges_the_worker_spans(tmp_path, monkeypatch):
+    """--profile switches the port's spans on for the run: its trace holds
+    each span once, on its own thread's track, the readers' and the
+    prefetch thread's beside the calling thread's, with their request
+    ids; tracing is off again after the run."""
+    import threading
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "q.txt").write_text(f"{FIXDIR}/tiny2.fa\n{FIXDIR}/multi.fa\n")
+    assert debug.span("x") is debug.NULL
+    assert cli.main(["-I", FOF, "-Q", "q.txt", "-S", "12", "-K", "21", "-J",
+                     "0.05", "--device", "cpu", "-O", "o.gz", "--profile",
+                     "tr"]) == 0
+    assert debug.span("x") is debug.NULL and len(debug.spans()) == 0
+    trace_path, = glob.glob(str(tmp_path / "tr" / "*.pt.trace.json"))
+    with open(trace_path) as f:
+        trace = json.load(f)
+    assert trace["programSpansDropped"] == 0
+    ev = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    main = threading.get_native_id()
+
+    def named(n):
+        return [e for e in ev if e["name"] == n]
+
+    # the calling thread's spans come from the profiler's own ranges
+    for n in ("engine.insert", "engine.query", "engine.sketch_wait",
+              "writer.close"):
+        e, = named(n)
+        assert e["tid"] == main and e["cat"] == "user_annotation"
+    # the pool threads' are merged, once each, off the calling thread
+    reads = named("index.read")
+    assert len(reads) == 5
+    assert all(e["tid"] != main and "request" in e["args"] for e in reads)
+    sk = named("index.sketch_files")
+    assert len(sk) == 2 and len({e["tid"] for e in sk}) == 2
+    q = [e for e in sk if e["tid"] != main][0]
+    assert q["args"]["files"] == 2
+    # the insert's three reads and the query's two, in two requests
+    assert len({e["args"]["request"] for e in reads}) == 2
+    assert sum(e["args"]["request"] == q["args"]["request"]
+               for e in reads) == 2
+    names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    assert {e["tid"] for e in reads} <= set(names)

@@ -357,6 +357,9 @@ NOT_PORTED = {
     "ops/psort.py:LANES": "Pallas tiling constant",
     "ops/psort.py:LOG_LANES": "Pallas tiling constant",
     "ops/bcount.py:CHUNK_LANES": "Pallas tiling constant",
+    # the sweep's wait / dispatch / emit times were stderr lines that
+    # nothing read; the port's sweep.* spans (debug.tracing) carry them
+    "NIQKI_TPU_MATRIX_STATS": "the sweep.* spans carry its numbers",
 }
 # NIQKI_TPU_COUNT=bcount-interpret (Pallas interpret mode) is a value, not
 # a name: the port's COUNT_MODES leave it out, and the plain versions
