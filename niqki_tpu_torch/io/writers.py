@@ -33,11 +33,17 @@ class GzTextWriter:
 
     The output is a multi-member gzip stream: text accumulates into fixed
     4 MiB blocks, each deflated as an independent gzip member on a small
-    thread pool (the deflate releases the GIL) and written in order. The
-    decompressed bytes equal a single-member stream's, and standard tools
-    read multi-member streams. Member boundaries sit at exactly BLOCK input
-    bytes whatever the write() sizes, so the output is deterministic for
-    one level and one library. Members deflate through
+    thread pool (the deflate releases the GIL) and written in order. At
+    close, the tail (the bytes after the last full BLOCK) is cut into
+    members of PIECE input bytes and one shorter last member, all
+    submitted to the pool at once, so a short output (a ``-Q`` call's
+    hits) deflates in parallel rather than as one member on one thread;
+    an empty file still gets one member. The decompressed bytes equal a
+    single-member stream's, and standard tools read multi-member streams.
+    Member boundaries depend only on the bytes written (BLOCK multiples,
+    then PIECE multiples after the last of them), never on the write()
+    sizes, so the output is deterministic for one level and one library.
+    Members deflate through
     ``native.gzip_member`` (libdeflate where the library was built with
     it) where the native library is loaded, else through Python's zlib.
     The level is NIQKI_TPU_GZLEVEL, else 6, zlib's default and the
@@ -45,6 +51,7 @@ class GzTextWriter:
     """
 
     BLOCK = 4 << 20
+    PIECE = 256 << 10
 
     def __init__(self, path: str):
         self.path = path
@@ -81,7 +88,6 @@ class GzTextWriter:
         self._futs.append(self._pool.submit(carry(self._member), blk,
                                             self._level))
         self._members += 1
-        self._drain()
 
     def write(self, s: str | bytes) -> None:
         if isinstance(s, str):
@@ -98,6 +104,7 @@ class GzTextWriter:
             off = 0
             while len(data) - off >= self.BLOCK:
                 self._submit(mv[off:off + self.BLOCK])
+                self._drain()
                 off += self.BLOCK
             tail = bytes(mv[off:])
             self._buf = [tail] if tail else []
@@ -106,12 +113,17 @@ class GzTextWriter:
     def close(self) -> None:
         if self._f is None:
             return
-        with span("writer.close", 2):
+        with span("writer.close", 2) as s:
             tail = b"".join(self._buf)
             self._buf = []
+            mv = memoryview(tail)
             # an empty file still gets a member
-            if tail or self._members == 0:
-                self._submit(tail)
+            cuts = range(0, len(tail), self.PIECE) or (
+                [0] if self._members == 0 else [])
+            for lo in cuts:
+                self._submit(mv[lo:lo + self.PIECE])
+            if s:
+                s.set(members=len(cuts))
             self._drain(all_=True)
             self._pool.shutdown()
             self._f.close()

@@ -130,6 +130,18 @@ def test_scan_dump_sizes_matches_jax():
             mod.scan_dump_sizes(cut, len(sizes))
 
 
+def _raw_members(raw):
+    """The compressed bytes of each gzip member of ``raw``."""
+    out = []
+    while raw:
+        d = zlib.decompressobj(31)
+        d.decompress(raw)
+        rest = d.unused_data
+        out.append(raw[:len(raw) - len(rest)])
+        raw = rest
+    return out
+
+
 def _text(n_bytes, seed=0):
     """Matrix-like row text: names, tabs and %g counts."""
     rng = np.random.default_rng(seed)
@@ -188,11 +200,17 @@ def test_sketch_stage_bench_keys():
 def test_gz_writer_matches_jax(tmp_path, monkeypatch, env):
     """GzTextWriter at NIQKI_TPU_GZLEVEL (6 where unset): decompressed
     bytes == niqki_tpu's writer's over more than two 4 MiB members; the
-    same library and level give the same members. The zlib route (no
-    native library) inflates to the same bytes."""
+    same library and level give the same 4 MiB members, and the port cuts
+    the 1 MiB tail that niqki_tpu writes as one member into members of
+    PIECE bytes, each byte-identical with niqki_tpu's member of its
+    slice. The zlib route (no native library) does the same against
+    niqki_tpu's zlib route."""
     if env:
         monkeypatch.setenv("NIQKI_TPU_GZLEVEL", env)
+    level = int(env or 6)
     data = _text(9 << 20, seed=int(env or 0))
+    tail, piece = data[2 * GzTextWriter.BLOCK:], GzTextWriter.PIECE
+    cuts = range(0, len(tail), piece)
     paths = {}
     for tag, cls in (("port", GzTextWriter), ("jax", JaxWriter)):
         paths[tag] = str(tmp_path / f"{tag}.gz")
@@ -201,11 +219,22 @@ def test_gz_writer_matches_jax(tmp_path, monkeypatch, env):
                 w.write(data[lo:lo + (1 << 19)])
     assert _gz(paths["port"]) == _gz(paths["jax"]) == data
     with open(paths["port"], "rb") as a, open(paths["jax"], "rb") as b:
-        assert a.read() == b.read()
+        port, jax = _raw_members(a.read()), _raw_members(b.read())
+    assert len(jax) == 3 and port[:2] == jax[:2]
+    assert [zlib.decompress(m, 31) for m in port[2:]] == [
+        tail[lo:lo + piece] for lo in cuts]
+    assert port[2:] == [JaxWriter._member(tail[lo:lo + piece], level)
+                        for lo in cuts]
     monkeypatch.setattr(native, "gzip_member", lambda d, lv: None)
+    monkeypatch.setattr(jnative, "available", lambda: False)
     with GzTextWriter(str(tmp_path / "z.gz")) as w:
         w.write(data)
     assert _gz(str(tmp_path / "z.gz")) == data
+    with open(tmp_path / "z.gz", "rb") as f:
+        z = _raw_members(f.read())
+    assert z == [JaxWriter._member(data[lo:lo + GzTextWriter.BLOCK], level)
+                 for lo in (0, GzTextWriter.BLOCK)] + [
+        JaxWriter._member(tail[lo:lo + piece], level) for lo in cuts]
 
 
 def test_gz_writer_levels_differ(tmp_path, monkeypatch):

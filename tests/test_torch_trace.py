@@ -152,6 +152,26 @@ def test_query_spans(tmp_path):
     deflate, = _named(spans, "writer.deflate")
     assert deflate.parent == close.sid and deflate.tid != main
     assert deflate.counts["bytes"] == len(_gz(tmp_path / "o.gz"))
+    assert close.counts == {"members": 1}
+
+
+def test_close_counts_its_members(tmp_path):
+    """A 1.5 MB close (a -Q call's hits): its members count equals its
+    writer.deflate spans, children of the close on the pool's threads,
+    which hold every byte of the file."""
+    data = (b"/q/a.fa /g/b.fa:0.51 /g/c.fa:0.0732 \n" * 40000)[:1_500_000]
+    debug.tracing(True)
+    with GzTextWriter(str(tmp_path / "w.gz")) as w:
+        w.write(data)
+    spans = debug.spans()
+    close, = _named(spans, "writer.close")
+    deflates = _named(spans, "writer.deflate")
+    assert close.counts == {"members": len(deflates)}
+    assert len(deflates) == -(-len(data) // GzTextWriter.PIECE)
+    main = threading.get_native_id()
+    assert all(d.parent == close.sid and d.tid != main for d in deflates)
+    assert sum(d.counts["bytes"] for d in deflates) == len(data)
+    assert _gz(tmp_path / "w.gz") == data
 
 
 def test_lines_spans(tmp_path, monkeypatch):
