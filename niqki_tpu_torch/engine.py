@@ -31,8 +31,9 @@ from . import hostmem, native
 from .debug import carry, span
 from .index import SketchIndex, hits_from_counts_batch
 from .io.fasta import exists, read_fof, read_query_fof, read_records
-from .io.writers import (GzTextWriter, write_binary_hits, write_matrix_header,
-                         write_matrix_row, write_pretty_hits)
+from .io.writers import (GzTextWriter, matrix_row_text, write_binary_hits,
+                         write_matrix_header, write_matrix_row,
+                         write_pretty_hits)
 from .ops import bcount
 from .parallel.auto import active_mesh
 
@@ -177,11 +178,28 @@ def query_file_lines(index: SketchIndex, path: str, out: GzTextWriter,
                 write_binary_hits(out, r[0], hits)
 
 
+def _format(rows: int, fn, *args) -> bytes:
+    """``fn(*args)``, the text of ``rows`` matrix rows, in a
+    ``matrix.format`` span (rows, bytes)."""
+    with span("matrix.format", 2) as s:
+        b = fn(*args)
+        if s:
+            s.set(rows=rows, bytes=len(b))
+        return b
+
+
+def _survivors(counts, min_score: int) -> int:
+    """Entries of ``counts`` that print a value (>= min_score)."""
+    return int(np.count_nonzero(counts >= min_score))
+
+
 class _ParallelMatrixFmt:
     """Row-chunked parallel front of native.MatrixFormatter (the C++
     formatter releases the GIL). Each worker owns its formatter, whose
     output buffer is not shareable; chunks write to ``out`` in row
-    order."""
+    order. Each chunk's formatting is a ``matrix.format`` span on its
+    worker, and the calling thread's wait for it a
+    ``matrix.format_wait`` span (the write that follows is not in it)."""
 
     def __init__(self, names, F: int, min_score: int, threads: int = 4):
         self._fmts = [native.MatrixFormatter(names, F, min_score)
@@ -191,16 +209,21 @@ class _ParallelMatrixFmt:
     def _write(self, out, method: str, arrays, row0: int) -> None:
         n = len(arrays[0])
         if n <= 96:
-            out.write(getattr(self._fmts[0], method)(*arrays, row0))
+            out.write(_format(n, getattr(self._fmts[0], method), *arrays,
+                              row0))
             return
         k = len(self._fmts)
         chunk = -(-n // k)
-        futs = [self._pool.submit(getattr(self._fmts[t], method),
-                                  *[a[t * chunk:(t + 1) * chunk]
-                                    for a in arrays], row0 + t * chunk)
-                for t in range(k) if t * chunk < n]
+        fmt = carry(_format)
+        futs = [self._pool.submit(fmt, min(chunk, n - a0),
+                                  getattr(self._fmts[t], method),
+                                  *[a[a0:a0 + chunk] for a in arrays],
+                                  row0 + a0)
+                for t, a0 in enumerate(range(0, n, chunk))]
         for f in futs:
-            out.write(f.result())
+            with span("matrix.format_wait", 2):
+                b = f.result()
+            out.write(b)
 
     def write_sparse(self, out, vals, idx, row0: int) -> None:
         self._write(out, "format_sparse", (vals, idx), row0)
@@ -247,7 +270,9 @@ def _run_ahead(n: int, dispatch, fetch, emit) -> None:
     dispatched before block i is emitted, and each block's device to host
     copy runs on a fetch thread, so the card counts while the host
     formats. The spans ``sweep.dispatch``, ``sweep.wait`` and
-    ``sweep.emit`` (each with its ``block``) time each block's steps."""
+    ``sweep.emit`` (each with its ``block``) time each block's steps;
+    ``emit(i, res, s)`` is handed its ``sweep.emit`` span, for its
+    counts."""
     ahead = max(1, int(os.environ.get("NIQKI_TPU_MATRIX_AHEAD", "2")))
 
     def step(name: str, i: int):
@@ -269,8 +294,8 @@ def _run_ahead(n: int, dispatch, fetch, emit) -> None:
                 with step("sweep.dispatch", i + ahead):
                     d = dispatch(i + ahead)
                 pending.append(fetcher.submit(carry(fetch), d))
-            with step("sweep.emit", i):
-                emit(i, res)
+            with step("sweep.emit", i) as s:
+                emit(i, res, s)
 
 
 def _block_starts(G: int, Gp: int, B: int) -> list[tuple[int, int, int, int]]:
@@ -298,7 +323,8 @@ def _query_matrix_selfjoin_mesh(index: SketchIndex, out: GzTextWriter,
     collective of the sweep is called from that one thread, in block
     order; rows are written by the parallel formatter, as the
     single-device sweeps write them. Returns the sweep's stats (blocks,
-    tp, dense block re-fetches), or False where the mesh index does not
+    tp, dense block re-fetches, and the survivors written where the
+    ``sweep.emit`` spans record), or False where the mesh index does not
     route the planes kernel (callers take the dense loop)."""
     p = index.params
     sharded = index._sharded_for(mesh)
@@ -310,6 +336,7 @@ def _query_matrix_selfjoin_mesh(index: SketchIndex, out: GzTextWriter,
     sparse = p.min_score > 0
     starts = _block_starts(G, Gp, B)
     refetch = 0
+    tally: dict = {}
 
     def fetch(i):
         nonlocal refetch
@@ -327,20 +354,24 @@ def _query_matrix_selfjoin_mesh(index: SketchIndex, out: GzTextWriter,
             return sharded.selfjoin_block(start, B, None, 0)
         return res
 
-    def emit(i, res):
+    def emit(i, res, s):
         lo, _, off, n = starts[i]
         if isinstance(res, np.ndarray):
-            pfmt.write_dense(out, res[off:off + n, :G], lo)
+            shown = res[off:off + n, :G]
+            pfmt.write_dense(out, shown, lo)
         else:
-            pfmt.write_sparse(out, res[0][off:off + n], res[1][off:off + n],
-                              lo)
+            shown = res[0][off:off + n]
+            pfmt.write_sparse(out, shown, res[1][off:off + n], lo)
+        if s:
+            _count_emit(s, tally, n, _survivors(shown, p.min_score))
 
     pfmt = _ParallelMatrixFmt(index.names, p.F, p.min_score)
     try:
         _run_ahead(len(starts), lambda i: i, fetch, emit)
     finally:
         pfmt.close()
-    return {"blocks": len(starts), "tp": sharded._tp, "refetch": refetch}
+    return {"blocks": len(starts), "tp": sharded._tp, "refetch": refetch,
+            **tally}
 
 
 def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter):
@@ -349,15 +380,17 @@ def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter):
     matrices unless NIQKI_TPU_MATRIX_SYM=off, else the full sweep, each
     block against every column. Byte-identical with the dense loop of
     ``query_matrix``. min_score == 0 always takes the full sweep: every
-    cell prints, so dense rows cross whatever the symmetry. Returns a
-    true value once the matrix is written, False where the mesh's index
-    is off the planes route (the dense loop serves)."""
+    cell prints, so dense rows cross whatever the symmetry. Returns the
+    sweep's stats once the matrix is written, its ``route`` among them
+    (``mesh``, ``sym`` or ``full``), or False where the mesh's index is
+    off the planes route (the dense loop serves)."""
     mesh = active_mesh(index.device)
     if mesh is not None:
-        return _query_matrix_selfjoin_mesh(index, out, mesh)
+        st = _query_matrix_selfjoin_mesh(index, out, mesh)
+        return st and {"route": "mesh", **st}
     if index.params.min_score > 0 and _sym_mode() != "off":
-        _query_matrix_selfjoin_sym(index, out)
-        return True
+        st = dict(_query_matrix_selfjoin_sym(index, out))
+        return {"route": "sym", "blocks": st.pop("N"), **st}
     p = index.params
     xp = index._planes()
     G, Gp = index.G, xp.shape[1]
@@ -367,8 +400,8 @@ def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter):
     cap = min(Gp, int(os.environ.get("NIQKI_TPU_MATRIX_CAP", "1024")))
     fmt = native.MatrixFormatter(index.names, p.F, p.min_score)
     pfmt = _ParallelMatrixFmt(index.names, p.F, p.min_score)
-
     starts = _block_starts(G, Gp, B)
+    tally: dict = {}
 
     def dispatch(i):
         lo, start, off, n = starts[i]
@@ -382,15 +415,24 @@ def _query_matrix_selfjoin(index: SketchIndex, out: GzTextWriter):
             return res[0].cpu().numpy(), res[1].cpu().numpy()
         return res.cpu().numpy()
 
-    def emit(i, res):
-        _emit_selfjoin_block(index, out, fmt, pfmt, res, sparse, xp,
-                             starts[i], cap, G=G, Gp=Gp)
+    def emit(i, res, s):
+        surv = _emit_selfjoin_block(index, out, fmt, pfmt, res, sparse, xp,
+                                    starts[i], cap, G=G, Gp=Gp, count=bool(s))
+        if s:
+            _count_emit(s, tally, starts[i][3], surv)
 
     try:
         _run_ahead(len(starts), dispatch, fetch, emit)
     finally:
         pfmt.close()
-    return True
+    return {"route": "full", "blocks": len(starts), **tally}
+
+
+def _count_emit(s, tally: dict, rows: int, survivors: int) -> None:
+    """Set a block's ``sweep.emit`` counts and add its survivors to the
+    sweep's ``tally``."""
+    s.set(rows=rows, survivors=survivors)
+    tally["survivors"] = tally.get("survivors", 0) + survivors
 
 
 def _write_rows(out, fmt, pfmt, vals, idx, over, dense_rows, lo: int):
@@ -403,7 +445,8 @@ def _write_rows(out, fmt, pfmt, vals, idx, over, dense_rows, lo: int):
     n, r = len(vals), 0
     while r < n:
         if over[r]:
-            out.write(fmt.format_dense(dense_rows[r][None, :], lo + r))
+            out.write(_format(1, fmt.format_dense, dense_rows[r][None, :],
+                              lo + r))
             r += 1
         else:
             e = r
@@ -414,16 +457,18 @@ def _write_rows(out, fmt, pfmt, vals, idx, over, dense_rows, lo: int):
 
 
 def _emit_selfjoin_block(index, out, fmt, pfmt, res, sparse, xp, blk, cap,
-                         *, G, Gp):
+                         *, G, Gp, count=False):
     """Write one block's rows. A sparse row whose top-k is full (its least
     kept count still passes min_score) may have lost survivors: only the
     BLOCK_Q sub-blocks holding such rows are re-counted dense, and sparse
-    runs and dense rows are written interleaved in row order."""
+    runs and dense rows are written interleaved in row order. Returns the
+    survivors written where ``count``, else None."""
     p = index.params
     lo, start, off, n = blk
     if not sparse:
         pfmt.write_dense(out, res[off:off + n, :G], lo)
-        return
+        return (_survivors(res[off:off + n, :G], p.min_score) if count
+                else None)
     vals, idx = res
     vals, idx = vals[off:off + n], idx[off:off + n]
     over = (vals[:, -1] >= p.min_score) if cap < Gp else np.zeros(n, bool)
@@ -437,6 +482,10 @@ def _emit_selfjoin_block(index, out, fmt, pfmt, res, sparse, xp, blk, cap,
         for r in over_rows[over_rows // bcount.BLOCK_Q == s]:
             dense_rows[int(r)] = d[lo + int(r) - sub]
     _write_rows(out, fmt, pfmt, vals, idx, over, dense_rows, lo)
+    if not count:
+        return None
+    return _survivors(vals[~over], p.min_score) + sum(
+        _survivors(d, p.min_score) for d in dense_rows.values())
 
 
 class _Mirrors:
@@ -452,12 +501,12 @@ class _Mirrors:
         self.blocks: list[list] = [[] for _ in range(n_blocks)]
         self.held = self.peak = self.entries = 0
 
-    def add(self, rows, cols, vals, lo: int) -> None:
+    def add(self, rows, cols, vals, lo: int) -> int:
         """Survivors (row, col) with col >= lo + B mirror to (col, row),
-        pending for block col // B."""
+        pending for block col // B; returns how many."""
         sel = cols >= lo + self.B
         if not sel.any():
-            return
+            return 0
         mr = cols[sel].astype(np.int32)
         mc = rows[sel].astype(np.int32)
         mv = vals[sel].astype(np.uint16)
@@ -472,6 +521,7 @@ class _Mirrors:
         self.entries += len(mr)
         self.held += self.ENTRY_BYTES * len(mr)
         self.peak = max(self.peak, self.held)
+        return len(mr)
 
     def take(self, i: int):
         """Block i's entries as (rows, cols, vals) int64/int32/int32 arrays,
@@ -533,6 +583,7 @@ def _query_matrix_selfjoin_sym(index: SketchIndex, out: GzTextWriter) -> dict:
     mirrors = _Mirrors(N, B)
     asm: dict = {"v": None, "g": None}
     refetch = 0
+    tally: dict = {}
 
     def dispatch(i):
         return bcount._self_join_window_topk(xpe, i * B, min_score, B=B,
@@ -555,12 +606,14 @@ def _query_matrix_selfjoin_sym(index: SketchIndex, out: GzTextWriter) -> dict:
                 dense[int(r)] = d[int(r) - s0]
         return dense
 
-    def emit(i, res):
+    def emit(i, res, s):
         vals, gids = res
         lo = i * B
         n = max(0, min(B, G - lo))
-        pend = mirrors.take(i)
         if n == 0:
+            mirrors.take(i)
+            if s:
+                _count_emit(s, tally, 0, 0)
             return
         vals, gids = vals[:n], gids[:n]
         # truncated: the top-k is full and the window holds more columns
@@ -573,40 +626,52 @@ def _query_matrix_selfjoin_sym(index: SketchIndex, out: GzTextWriter) -> dict:
         if over.any():
             keep[over] = False   # overflowed rows emit + mirror from dense
             dense_rows = refetch_dense(lo, over)
+        with span("sweep.mirror", 2) as sm:
+            pend = mirrors.take(i)
+            added = 0
             for r, drow in dense_rows.items():
                 dcols = np.nonzero(drow >= min_score)[0]
-                mirrors.add(np.full(len(dcols), lo + r), dcols, drow[dcols],
-                            lo)
-        rr, kk = np.nonzero(keep)
-        s_cols, s_vals = gids[rr, kk], vals[rr, kk]
-        mirrors.add(lo + rr, s_cols, s_vals, lo)
-        # rows: pending mirrors (cols < lo) + window survivors (cols >= lo)
-        if pend is not None:
-            a_rows = np.concatenate([pend[0] - lo, rr])
-            a_cols = np.concatenate([pend[1], s_cols])
-            a_vals = np.concatenate([pend[2], s_vals])
-        else:
-            a_rows, a_cols, a_vals = rr, s_cols, s_vals
-        order = np.argsort(a_rows, kind="stable")
-        a_rows, a_cols, a_vals = a_rows[order], a_cols[order], a_vals[order]
-        cnt = np.bincount(a_rows, minlength=n)
-        lmax = max(int(cnt.max()), 1)
-        starts = np.zeros(n + 1, np.int64)
-        np.cumsum(cnt, out=starts[1:])
-        pos = np.arange(len(a_rows)) - starts[a_rows]
-        # grow-only assembly buffers: a fresh zeroed pair per block would
-        # touch new pages every block
-        if asm["v"] is None or asm["v"].shape[0] < n \
-                or asm["v"].shape[1] < lmax:
-            asm["v"] = np.zeros((B, max(lmax, 2 * cap)), np.int32)
-            asm["g"] = np.zeros_like(asm["v"])
-        av = asm["v"][:n, :lmax]
-        ag = asm["g"][:n, :lmax]
-        av[:] = 0
-        ag[:] = 0
-        av[a_rows, pos] = a_vals
-        ag[a_rows, pos] = a_cols
+                added += mirrors.add(np.full(len(dcols), lo + r), dcols,
+                                     drow[dcols], lo)
+            rr, kk = np.nonzero(keep)
+            s_cols, s_vals = gids[rr, kk], vals[rr, kk]
+            added += mirrors.add(lo + rr, s_cols, s_vals, lo)
+            # rows: pending mirrors (cols < lo) + window survivors
+            # (cols >= lo)
+            if pend is not None:
+                a_rows = np.concatenate([pend[0] - lo, rr])
+                a_cols = np.concatenate([pend[1], s_cols])
+                a_vals = np.concatenate([pend[2], s_vals])
+            else:
+                a_rows, a_cols, a_vals = rr, s_cols, s_vals
+            order = np.argsort(a_rows, kind="stable")
+            a_rows, a_cols = a_rows[order], a_cols[order]
+            a_vals = a_vals[order]
+            cnt = np.bincount(a_rows, minlength=n)
+            lmax = max(int(cnt.max()), 1)
+            starts = np.zeros(n + 1, np.int64)
+            np.cumsum(cnt, out=starts[1:])
+            pos = np.arange(len(a_rows)) - starts[a_rows]
+            # grow-only assembly buffers: a fresh zeroed pair per block
+            # would touch new pages every block
+            if asm["v"] is None or asm["v"].shape[0] < n \
+                    or asm["v"].shape[1] < lmax:
+                asm["v"] = np.zeros((B, max(lmax, 2 * cap)), np.int32)
+                asm["g"] = np.zeros_like(asm["v"])
+            av = asm["v"][:n, :lmax]
+            ag = asm["g"][:n, :lmax]
+            av[:] = 0
+            ag[:] = 0
+            av[a_rows, pos] = a_vals
+            ag[a_rows, pos] = a_cols
+            if sm:
+                sm.set(entries=added, taken=0 if pend is None
+                       else len(pend[0]))
         _write_rows(out, fmt, pfmt, av, ag, over, dense_rows, lo)
+        if s:
+            # an overflowed row prints its dense row, not its mirrors
+            _count_emit(s, tally, n, int(cnt[~over].sum()) + sum(
+                _survivors(d, min_score) for d in dense_rows.values()))
 
     try:
         _run_ahead(N, dispatch, fetch, emit)
@@ -614,26 +679,51 @@ def _query_matrix_selfjoin_sym(index: SketchIndex, out: GzTextWriter) -> dict:
         pfmt.close()
     return dict(N=N, window_cols=sum(widths) * B, refetch=refetch,
                 mirror_entries=mirrors.entries,
-                peak_mirror_bytes=mirrors.peak)
+                peak_mirror_bytes=mirrors.peak, **tally)
 
 
 def query_matrix(index: SketchIndex, out: GzTextWriter,
                  batch: int = 10000) -> None:
-    """All-vs-all: the Jaccard matrix of the index against itself."""
-    write_matrix_header(out, index.names)
-    if index.G and _matrix_selfjoin_mode(index) \
-            and _query_matrix_selfjoin(index, out):
-        return
+    """All-vs-all: the Jaccard matrix of the index against itself. Opens
+    the request ``engine.matrix``: G, the ``route`` (``sym``, ``full``,
+    ``mesh`` or ``dense``), the sweep's stats (``blocks``; the symmetric
+    and mesh sweeps' ``refetch``; the symmetric sweep's ``window_cols``,
+    ``mirror_entries`` and ``peak_mirror_bytes``) and, where the
+    ``sweep.emit`` and ``matrix.format`` spans record, the ``survivors``:
+    the entries >= min_score written."""
+    with span("engine.matrix") as s:
+        write_matrix_header(out, index.names)
+        stats = None
+        if index.G and _matrix_selfjoin_mode(index):
+            stats = _query_matrix_selfjoin(index, out)
+        if not stats:
+            stats = _query_matrix_dense(index, out, batch)
+        if s:
+            s.set(G=index.G, **stats)
+
+
+def _query_matrix_dense(index: SketchIndex, out: GzTextWriter,
+                        batch: int) -> dict:
+    """The dense loop: counts of ``batch`` rows at a time, each row
+    formatted in Python in a ``matrix.format`` span."""
     p = index.params
     mat = index.matrix()
+    tally: dict = {}
     for lo in range(0, index.G, batch):
         hi = min(lo + batch, index.G)
         # the reference's matrix counters are uint16 (a genome's
         # self-count of F wraps at lF >= 16)
         counts = index.counts(mat[lo:hi]) & 0xFFFF
         for r in range(hi - lo):
-            write_matrix_row(out, index.names[lo + r], counts[r].tolist(),
-                             p.F, p.min_score)
+            with span("matrix.format", 2) as sf:
+                text = matrix_row_text(index.names[lo + r],
+                                       counts[r].tolist(), p.F, p.min_score)
+                if sf:
+                    sf.set(rows=1, bytes=len(text.encode()))
+                    tally["survivors"] = tally.get("survivors", 0) + \
+                        _survivors(counts[r], p.min_score)
+            out.write(text)
+    return {"route": "dense", **tally}
 
 
 def query_file_matrix(index: SketchIndex, path: str,

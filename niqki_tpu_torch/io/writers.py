@@ -156,12 +156,17 @@ def write_matrix_header(out: GzTextWriter, names):
     out.write("##Names\t" + "".join(str(n) + "\t" for n in names) + "\n")
 
 
-def write_matrix_row(out: GzTextWriter, query_name: str, row, F: int,
-                     min_score: int):
-    """row: dense per-genome counts (any int sequence)."""
+def matrix_row_text(query_name: str, row, F: int, min_score: int) -> str:
+    """One matrix row of dense per-genome counts (any int sequence)."""
     parts = [query_name, "\t"]
     for c in row:
         v = (c / F) if c >= min_score else 0.0
         parts.append(format_double(v) + "\t")
     parts.append("\n")
-    out.write("".join(parts))
+    return "".join(parts)
+
+
+def write_matrix_row(out: GzTextWriter, query_name: str, row, F: int,
+                     min_score: int):
+    """row: dense per-genome counts (any int sequence)."""
+    out.write(matrix_row_text(query_name, row, F, min_score))

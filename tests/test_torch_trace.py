@@ -316,7 +316,8 @@ def test_matrix_sweep_spans(monkeypatch, tmp_path):
     n = stats["N"]
     assert n == 3
     main = threading.get_native_id()
-    sweep = [s for s in spans if s.name.startswith("sweep.")]
+    sweep = [s for s in spans
+             if s.name in ("sweep.dispatch", "sweep.wait", "sweep.emit")]
     assert all(s.tid == main for s in sweep)
     order = [(s.name, s.counts["block"])
              for s in sorted(sweep, key=lambda s: s.t0)]
