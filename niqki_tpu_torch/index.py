@@ -96,6 +96,11 @@ def _collect(dev: torch.Tensor) -> np.ndarray:
     return host
 
 
+def _warn_unreadable(path: str, err: Exception) -> None:
+    print(f"Warning: skipping unreadable file '{path}': {err}",
+          file=sys.stderr)
+
+
 class SketchIndex:
     # Lines-mode records pad to 256-base buckets, not the whole-genome
     # 2^14 floor (a 150 bp read in a 16 kb row wastes ~100x the work).
@@ -217,9 +222,28 @@ class SketchIndex:
                            bases=sum(r[1] for r in recs))
             return recs
         except (OSError, EOFError, zlib.error) as e:
-            print(f"Warning: skipping unreadable file '{path}': {e}",
-                  file=sys.stderr)
+            _warn_unreadable(path, e)
             return []
+
+    def _read_window(self, paths, io_threads: int) -> list:
+        """_load_packed of each file of a window, in one native call that
+        releases the GIL once (on ``io_threads`` native threads, at most
+        one a file)."""
+        with span("index.read", 2) as sp:
+            files, threads = native.read_packed_files(paths, self.params.K,
+                                                      io_threads)
+            skipped = 0
+            for i, recs in enumerate(files):
+                if isinstance(recs, OSError):
+                    _warn_unreadable(paths[i], recs)
+                    files[i] = []
+                    skipped += 1
+            if sp:
+                sp.set(files=len(paths),
+                       records=sum(len(recs) for recs in files),
+                       bases=sum(r[1] for recs in files for r in recs),
+                       threads=threads, skipped=skipped)
+        return files
 
     def _iter_packed_with_headers(self, path: str):
         """Yield (header, words, n_bases, exc_idx) per record of one file,
@@ -396,16 +420,17 @@ class SketchIndex:
     def sketch_files(self, paths, window: int = 256,
                      io_threads: int | None = None) -> list[np.ndarray]:
         """Whole-file sketches for many files. The device route reads a
-        window of files on a thread pool, sketches all its records in
+        window of files in one native call (on a thread pool, a task a
+        file, where the library is absent), sketches all its records in
         batches on the device (a window of 100 kb records stacks into
         batches of up to 256 rows of 2^17 bases), and collects the previous
-        window's tables while the next one loads. NIQKI_TPU_WINDOW
+        window's tables while the next one is read. NIQKI_TPU_WINDOW
         overrides ``window``; NIQKI_TPU_SKETCH=host takes the host
         sketcher."""
         paths = list(paths)
         with span("index.sketch_files") as sp:
             if sp:
-                sp.set(files=len(paths))
+                sp.set(files=len(paths), batched=0)
             return self._sketch_files(paths, window, io_threads, sp)
 
     def _sketch_files(self, paths, window: int, io_threads, sp) -> list:
@@ -416,9 +441,27 @@ class SketchIndex:
         env_w = os.environ.get("NIQKI_TPU_WINDOW")
         if env_w:
             window = max(1, int(env_w))
-        out: list = [None] * len(paths)
         io_threads = io_threads or min(8, os.cpu_count() or 1)
+        if native.available():
+            if sp:
+                sp.set(batched=len(paths))
+
+            def read(part):     # read when the window is taken
+                return lambda: self._read_window(part, io_threads)
+            return self._sketch_windows(paths, window, sp, read)
         load = carry(self._load_packed)
+        with ThreadPoolExecutor(max_workers=io_threads) as pool:
+            def start(part):
+                futs = [pool.submit(load, pa) for pa in part]
+                return lambda: [f.result() for f in futs]
+            return self._sketch_windows(paths, window, sp, start)
+
+    def _sketch_windows(self, paths, window: int, sp, start) -> list:
+        """sketch_files' device route. ``start(part)`` begins reading a
+        window of paths and returns a function that gives each file's
+        records; window i+1 is started, and its device work queued, before
+        window i is collected."""
+        out: list = [None] * len(paths)
 
         def collect(pend) -> None:
             w0, rec_counts, batches = pend
@@ -435,28 +478,23 @@ class SketchIndex:
 
         pending = None
         n_records = 0
-        with ThreadPoolExecutor(max_workers=io_threads) as pool:
-            def submit(w0):
-                return (w0, [pool.submit(load, pa)
-                             for pa in paths[w0:w0 + window]])
-
-            sub = submit(0) if paths else None
-            while sub is not None:
-                w0, futs = sub
-                encs = [f.result() for f in futs]
-                nxt = w0 + window
-                sub = submit(nxt) if nxt < len(paths) else None
-                records = [rec for recs in encs for rec in recs]
-                n_records += len(records)
-                batches = dispatch_sketch_packed_batch(records, self.params,
-                                                       self.device)
-                dbg(f"window @{w0}: {len(encs)} files, {len(records)} "
-                    f"records, {len(batches)} device batches")
-                if pending is not None:
-                    collect(pending)
-                pending = (w0, [len(recs) for recs in encs], batches)
+        take = start(paths[:window]) if paths else None
+        for w0 in range(0, len(paths), window):
+            encs = take()
+            nxt = w0 + window
+            if nxt < len(paths):
+                take = start(paths[nxt:nxt + window])
+            records = [rec for recs in encs for rec in recs]
+            n_records += len(records)
+            batches = dispatch_sketch_packed_batch(records, self.params,
+                                                   self.device)
+            dbg(f"window @{w0}: {len(encs)} files, {len(records)} "
+                f"records, {len(batches)} device batches")
             if pending is not None:
                 collect(pending)
+            pending = (w0, [len(recs) for recs in encs], batches)
+        if pending is not None:
+            collect(pending)
         if sp:
             sp.set(records=n_records)
         return out

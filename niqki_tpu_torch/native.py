@@ -1,14 +1,19 @@
-"""ctypes bindings of the native host library (``native/niqki_host.cpp``).
+"""ctypes bindings of the port's native host library
+(``csrc/host.cpp``: every export of ``native/niqki_host.cpp``, compiled
+from it, and the window reader).
 
 The port's counterpart of ``niqki_tpu/native.py``: the FASTA/FASTQ reader
-(encoded or packed, per record and chunked), densify, the host sketchers
+(encoded or packed, per record and chunked; packed, a window of whole
+files in one call), densify, the host sketchers
 (the rolling sketch of code arrays, whole-file and per-record batches of
 packed records, and their per-stage timer), the dump's bucket-stream
 scanners, the host equality count, the matrix and hit formatters, the
 bit-plane pack of checkpoints and the gzip member deflate of the writer.
-The library is built from the repository's ``native/`` at first use
-(``make -C native``; NIQKI_TPU_NO_NATIVE_BUILD=1 skips the build, and
-NIQKI_TPU_NO_NATIVE=1 leaves the library unloaded). Its Makefile probes
+The library is built at first use into ``build/niqki_tpu_torch/``, named
+after its sources' hash (``make -C niqki_tpu_torch/csrc OUT=...``;
+NIQKI_TPU_NO_NATIVE_BUILD=1 skips the build, and NIQKI_TPU_NO_NATIVE=1
+leaves the library unloaded); the JAX package's ``native/libniqki_host.so``
+is not used. The Makefile probes
 for libdeflate with ``printf '\\#include <libdeflate.h>'``, which keeps the
 backslash under GNU make 4.3+ and so passes where libdeflate is absent;
 when that build leaves no library, it is built once more with
@@ -20,6 +25,7 @@ cached at the first call (``_tried``).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -32,26 +38,44 @@ from . import hostmem
 from .debug import span
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libniqki_host.so")
+_CSRC_DIR = os.path.join(_REPO_ROOT, "niqki_tpu_torch", "csrc")
+_SOURCES = (os.path.join(_CSRC_DIR, "Makefile"),
+            os.path.join(_CSRC_DIR, "host.cpp"),
+            os.path.join(_REPO_ROOT, "native", "niqki_host.cpp"))
+_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "niqki_tpu_torch")
 _ABI_VERSION = 11
+
+_ALLOC = ctypes.CFUNCTYPE(ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64)
 
 _lib = None
 _tried = False
 _lock = threading.Lock()
 
 
-def _build() -> None:
+def _so_path() -> str:
+    h = hashlib.sha256()
+    for path in _SOURCES:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_DIR, f"libniqki_host_{h.hexdigest()[:16]}.so")
+
+
+def _build() -> str:
+    """The library's path, built there first unless it exists or
+    NIQKI_TPU_NO_NATIVE_BUILD is set."""
+    so = _so_path()
     if os.environ.get("NIQKI_TPU_NO_NATIVE_BUILD"):
-        return
+        return so
     for extra in ([], ["HAVE_DEFLATE=0"]):
-        if os.path.exists(_SO_PATH):
-            return
+        if os.path.exists(so):
+            break
         try:
-            subprocess.run(["make", "-C", _NATIVE_DIR, "-s", *extra],
+            subprocess.run(["make", "-C", _CSRC_DIR, "-s", f"OUT={so}",
+                            *extra],
                            capture_output=True, timeout=300, check=False)
         except (OSError, subprocess.TimeoutExpired):
-            return          # no make: the pure-Python host paths serve
+            break           # no make: the pure-Python host paths serve
+    return so
 
 
 def _bind(lib) -> None:
@@ -124,6 +148,9 @@ def _bind(lib) -> None:
         ctypes.c_char_p, i64c, i64, ctypes.c_char_p, i64]
     lib.nq_pack_bitplanes.restype = i64
     lib.nq_pack_bitplanes.argtypes = [i32c, i64, i64, i64, vp, i64]
+    lib.nq_read_packed_files.restype = i64
+    lib.nq_read_packed_files.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), i64, i64, i64, _ALLOC, i64c, i32c]
 
 
 def _load():
@@ -134,9 +161,8 @@ def _load():
         _tried = True
         if os.environ.get("NIQKI_TPU_NO_NATIVE"):
             return None
-        _build()
         try:
-            lib = ctypes.CDLL(_SO_PATH)
+            lib = ctypes.CDLL(_build())
         except OSError:     # absent, or built for another machine
             return None
         _bind(lib)
@@ -272,6 +298,56 @@ def read_packed_records_chunked(path: str, K: int, ftype: str | None = None,
                        exc[exc_off[i]:exc_off[i + 1]])
     finally:
         lib.nq_reader_close(h)
+
+
+def read_packed_files(paths, K: int, max_threads: int):
+    """Every record (len > K) of each file, read and packed in one native
+    call that releases the GIL once, on min(max_threads, len(paths))
+    native threads: ``(files, threads)``, where files[i] is the list of
+    (packed_words, n_bases, exc_idx) records of paths[i], as
+    read_packed_records yields them without the header, or the OSError
+    that file gave (it could not be opened). Each record's arrays are
+    views into the window's concatenated copies. A file that is not a
+    regular file, or a gzip file that is not a run of whole members (a
+    truncated one, trailing bytes), is read by read_packed_records."""
+    lib = _require()
+    n = len(paths)
+    rec_off = np.zeros(n + 1, np.int64)
+    status = np.zeros(max(n, 1), np.int32)
+    kinds = (np.uint32, np.int64, np.int64, np.int32, np.int64)
+    arrays: list = [None] * len(kinds)
+
+    def alloc(kind: int, count: int) -> int:
+        arr = np.empty(max(count, 1), kinds[kind])
+        arrays[kind] = arr[:count]
+        return arr.ctypes.data
+
+    cb = _ALLOC(alloc)
+    c_paths = (ctypes.c_char_p * max(n, 1))(*map(os.fsencode, paths))
+    threads = lib.nq_read_packed_files(c_paths, n, K, max(1, max_threads),
+                                       cb, rec_off, status)
+    if threads < 0:
+        raise MemoryError("read_packed_files: no memory for the records")
+    words, exc = arrays[0], arrays[3]
+    wo, nb, eo = (arrays[k].tolist() for k in (1, 2, 4))
+    ro = rec_off.tolist()
+    files: list = []
+    for i, path in enumerate(paths):
+        if status[i] == 0:
+            files.append([(words[wo[r]:wo[r + 1]], nb[r],
+                           exc[eo[r]:eo[r + 1]])
+                          for r in range(ro[i], ro[i + 1])])
+        elif status[i] == -1:
+            files.append(OSError(f"cannot open {path}"))
+        elif status[i] == -2:
+            files.append(OSError(f"out of memory reading {path}"))
+        else:
+            try:
+                files.append([(w, nw, e) for _, w, nw, e
+                              in read_packed_records(path, K)])
+            except OSError as err:
+                files.append(err)
+    return files, int(threads)
 
 
 def _concat_recs(recs):

@@ -99,9 +99,9 @@ def test_debug_env_traces_the_sketch_windows(tmp_path):
 
 def test_cli_profile_merges_the_worker_spans(tmp_path, monkeypatch):
     """--profile switches the port's spans on for the run: its trace holds
-    each span once, on its own thread's track, the readers' and the
-    prefetch thread's beside the calling thread's, with their request
-    ids; tracing is off again after the run."""
+    each span once, on its own thread's track, the prefetch thread's
+    beside the calling thread's, with their request ids; tracing is off
+    again after the run."""
     import threading
     monkeypatch.chdir(tmp_path)
     (tmp_path / "q.txt").write_text(f"{FIXDIR}/tiny2.fa\n{FIXDIR}/multi.fa\n")
@@ -125,18 +125,23 @@ def test_cli_profile_merges_the_worker_spans(tmp_path, monkeypatch):
               "writer.close"):
         e, = named(n)
         assert e["tid"] == main and e["cat"] == "user_annotation"
-    # the pool threads' are merged, once each, off the calling thread
-    reads = named("index.read")
-    assert len(reads) == 5
-    assert all(e["tid"] != main and "request" in e["args"] for e in reads)
+    # the prefetch thread's are merged, once each, off the calling thread
     sk = named("index.sketch_files")
     assert len(sk) == 2 and len({e["tid"] for e in sk}) == 2
     q = [e for e in sk if e["tid"] != main][0]
-    assert q["args"]["files"] == 2
-    # the insert's three reads and the query's two, in two requests
-    assert len({e["args"]["request"] for e in reads}) == 2
-    assert sum(e["args"]["request"] == q["args"]["request"]
-               for e in reads) == 2
+    assert q["args"]["files"] == 2 and q["args"]["batched"] == 2
+    # one read a window, on the thread of its sketch_files: the insert's
+    # three files on the calling thread, the query's two on the prefetch
+    # thread, in the query's request
+    reads = named("index.read")
+    assert len(reads) == 2
+    ins, = [e for e in reads if e["tid"] == main]
+    assert ins["cat"] == "user_annotation"
+    qr, = [e for e in reads if e["tid"] != main]
+    assert qr["tid"] == q["tid"]
+    assert qr["args"]["request"] == q["args"]["request"]
+    assert (qr["args"]["files"], qr["args"]["records"],
+            qr["args"]["threads"]) == (2, 3, min(2, os.cpu_count() or 1))
     names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
              if e.get("ph") == "M" and e.get("name") == "thread_name"}
     assert {e["tid"] for e in reads} <= set(names)
