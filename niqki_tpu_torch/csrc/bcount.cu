@@ -4,9 +4,9 @@
 //
 // X is the index as P = W+1 bit-planes (W value planes and one validity
 // plane), 32 fingerprints packed per uint32 lane; Q is a block of queries in
-// the same layout. Replaces niqki_tpu/ops/bcount.py _bcount_call /
-// _bcount_kernel (the Pallas kernel behind the matrix self-join and the -Q
-// hit counts).
+// the same layout. Replaces the JAX package's _bcount_call /
+// _bcount_kernel in its ops/bcount.py (the Pallas kernel behind the matrix
+// self-join and the -Q hit counts).
 //
 // What bounds it on the H100: the integer pipe. Each (q, g, lane) costs P
 // XNOR-ANDs, one LOP3 each at 64 a clock per SM, and one popcount; the

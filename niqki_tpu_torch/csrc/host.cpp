@@ -1,9 +1,7 @@
-// The port's native host library: every export of native/niqki_host.cpp,
-// compiled from that file as it stands, and nq_read_packed_files, the
-// window reader of SketchIndex.sketch_files. Built by
-// niqki_tpu_torch/native.py through this directory's Makefile into
-// build/niqki_tpu_torch/; native/libniqki_host.so, the JAX package's, is
-// neither built nor changed by it.
+// The port's native host library: every export of niqki_host.cpp, the
+// port's own copy of its host runtime, and nq_read_packed_files, the
+// window reader of SketchIndex.sketch_files. Built from this directory
+// alone by niqki_tpu_torch/native.py through this directory's Makefile.
 //
 // The window reader shares pack_seq_into_chunk with the per-file readers
 // (the 2-bit + rc-exception packing exists once) and keeps their record
@@ -16,7 +14,7 @@
 // fresh pages costs more than reading a 10 kb file. The files it does not
 // read whole (load_text) are left to the per-file reader.
 
-#include "../../native/niqki_host.cpp"
+#include "niqki_host.cpp"
 
 #include <atomic>
 #include <cerrno>

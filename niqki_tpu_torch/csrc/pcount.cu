@@ -5,9 +5,9 @@
 // Fingerprints are int16 (W <= 14 bits plus the -2 / -3 sentinels) packed two
 // per 32-bit lane, so each lane holds a pair; a half matches iff its 16 bits
 // of x ^ q are zero. Q is the queries (Qb, Fp), X the index (G, Fp), Fp = F/2
-// pair lanes. Replaces niqki_tpu/ops/pcount.py _count_call / _count_kernel
-// (the Pallas kernel behind SketchIndex.counts when the bit-plane gate fails,
-// i.e. S <= 11).
+// pair lanes. Replaces the JAX package's _count_call / _count_kernel in its
+// ops/pcount.py (the Pallas kernel behind SketchIndex.counts when the
+// bit-plane gate fails, i.e. S <= 11).
 //
 // What bounds it on the H100: the integer pipe. Each (q, g, pair lane) is an
 // xor, a test of each half and an add, while X and Q are read from device
@@ -34,7 +34,7 @@
 //   tile half or a quarter empty, so the tile is a template of 64, 96 or 128
 //   queries (4, 6 or 8 a thread) and the plan takes the one that pads least.
 //   On the H100 the 128 tile forced on such calls takes 1.26x the device
-//   time at 96 queries and 1.7-1.9x at 64 (PERF.md, tools/torch_pcount_ab.py
+//   time at 96 queries and 1.7-1.9x at 64 (PERF.md, the K3 A/B tool's
 //   --tile-q).
 // - Loads overlapped with compute. Lanes come in chunks of 32; chunk k+1 is
 //   copied with 16-byte cp.async into the second of two buffers while chunk
@@ -47,7 +47,7 @@
 //   16-bit-per-half counters with one three-input add; matches = 2 x lanes -
 //   nonzero halves. That is 2.5 SASS instructions per (query, row, pair
 //   lane), against 8.4 for ((z & 0xFFFF) == 0) + ((z >> 16) == 0) and 5.0
-//   for the SWAR zero-halfword test (tools/torch_pcount_ab.py --sass). A
+//   for the SWAR zero-halfword test (the K3 A/B tool's --sass). A
 //   16-bit counter holds at most one per lane, so a lane range is at most
 //   32,768 lanes (the plan cuts longer lane axes).
 //

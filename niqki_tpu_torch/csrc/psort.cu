@@ -1,8 +1,8 @@
 // K1: batched ascending sort of int32 rows, N = 2^m keys per row, as a
 // segmented LSD radix sort.
 //
-// Replaces niqki_tpu/ops/psort.py sort_i32_pow2_batch (_local_sort_kernel,
-// _merge_tail_kernel, _cross_kernel). On the sketch path it is the per-slot
+// Replaces the JAX package's sort_i32_pow2_batch in its ops/psort.py
+// (_local_sort_kernel, _merge_tail_kernel, _cross_kernel). On the sketch path it is the per-slot
 // min reduction: the composite keys (slot << Wb) | fp of one record are
 // sorted so that each slot's run head is its minimum fingerprint.
 //

@@ -159,17 +159,6 @@ class SketchIndex:
 
     # ------------------------------------------------------------------
     # sketching
-    def _device_tables(self, records) -> list:
-        """Per-record device sketch tables as host arrays (None for records
-        without k-mers), in record order."""
-        rows: list = [None] * len(records)
-        for chunk, dev in dispatch_sketch_packed_batch(records, self.params,
-                                                       self.device):
-            host = _collect(dev)
-            for row, i in enumerate(chunk):
-                rows[i] = host[row]
-        return rows
-
     def sketch_records(self, seqs) -> np.ndarray:
         """Whole-file semantics: all records min-merge into one sketch
         (densified after each). Returns (F,) int32 with -1 empty."""
@@ -181,7 +170,8 @@ class SketchIndex:
                     for s in seqs]
             if sp:
                 sp.set(records=len(recs), bases=sum(r[1] for r in recs))
-        return self._finalize_tables(self._device_tables(recs))
+        batches = dispatch_sketch_packed_batch(recs, p, self.device)
+        return self._collect_packed(batches, [len(recs)])[0]
 
     def _host_sketch_route(self) -> bool:
         """NIQKI_TPU_SKETCH=host sketches whole files and every lines-mode
@@ -196,53 +186,37 @@ class SketchIndex:
             recs, p.lF, p.K, p.W, p.H, p.mask_M, p.maximal_remainder)
 
     def sketch_file(self, path: str) -> np.ndarray:
-        if self._host_sketch_route():
-            return self._host_sketch_whole(
-                [(w, n, e) for _, w, n, e
-                 in native.read_packed_records(path, self.params.K)])
-        return self.sketch_records(s for _, s in read_records(path,
-                                                              self.params.K))
+        """The whole-file sketch of one file: its ``sketch_files`` row,
+        except that a file that cannot be read raises (OSError where it
+        cannot be opened) instead of being skipped."""
+        return self._sketch_files([path], 1, None, strict=True)[0]
 
-    def _load_packed(self, path: str):
-        """Parse and pack every record of one file into the 2-bit wire
-        (words, n_bases, exc_idx): the native reader when built (it
-        releases the GIL), else Python. Unreadable or corrupt files are
-        skipped with a warning, as the reference skips missing entries."""
+    def _load_packed(self, paths, io_threads: int) -> list:
+        """Each file's records packed into the 2-bit wire (words, n_bases,
+        exc_idx), or the error the file gave: one native call for all the
+        paths, which releases the GIL once (on ``io_threads`` native
+        threads, at most one a file), or, where the library is absent, the
+        Python reader file by file. Of a damaged gzip the native reader
+        keeps what inflated, where Python's gzip raises."""
         p = self.params
-        try:
-            with span("index.read", 2) as sp:
-                if native.available():
-                    recs = [(w, n, e) for _, w, n, e
-                            in native.read_packed_records(path, p.K)]
-                else:
-                    recs = [pack_codes(*oracle.encode_record(s, p.K), p.K)
-                            for _, s in read_records(path, p.K)]
-                if sp:
-                    sp.set(files=1, records=len(recs),
-                           bases=sum(r[1] for r in recs))
-            return recs
-        except (OSError, EOFError, zlib.error) as e:
-            _warn_unreadable(path, e)
-            return []
-
-    def _read_window(self, paths, io_threads: int) -> list:
-        """_load_packed of each file of a window, in one native call that
-        releases the GIL once (on ``io_threads`` native threads, at most
-        one a file)."""
         with span("index.read", 2) as sp:
-            files, threads = native.read_packed_files(paths, self.params.K,
-                                                      io_threads)
-            skipped = 0
-            for i, recs in enumerate(files):
-                if isinstance(recs, OSError):
-                    _warn_unreadable(paths[i], recs)
-                    files[i] = []
-                    skipped += 1
+            if native.available():
+                files, threads = native.read_packed_files(paths, p.K,
+                                                          io_threads)
+            else:
+                files, threads = [], 1
+                for path in paths:
+                    try:
+                        files.append(
+                            [pack_codes(*oracle.encode_record(s, p.K), p.K)
+                             for _, s in read_records(path, p.K)])
+                    except (OSError, EOFError, zlib.error) as e:
+                        files.append(e)
             if sp:
-                sp.set(files=len(paths),
-                       records=sum(len(recs) for recs in files),
-                       bases=sum(r[1] for recs in files for r in recs),
-                       threads=threads, skipped=skipped)
+                ok = [recs for recs in files if isinstance(recs, list)]
+                sp.set(files=len(paths), records=sum(map(len, ok)),
+                       bases=sum(r[1] for recs in ok for r in recs),
+                       threads=threads, skipped=len(files) - len(ok))
         return files
 
     def _iter_packed_with_headers(self, path: str):
@@ -267,19 +241,39 @@ class SketchIndex:
             return []
         batches = dispatch_sketch_packed_batch(packed_records, self.params,
                                                self.device, min_pad=min_pad)
-        return self._collect_packed(len(packed_records), batches)
+        return self._collect_packed(batches, [1] * len(packed_records))
 
-    def _collect_packed(self, n: int, batches) -> list[np.ndarray]:
-        """Each record's device table finalized on its own (densified);
-        records without k-mers get an empty sketch."""
-        out: list = [None] * n
+    def _collect_packed(self, batches, rec_counts) -> list[np.ndarray]:
+        """One final sketch (-1 empty) a file from the device batches of
+        its records, file i holding the next ``rec_counts[i]`` records:
+        its tables min-merged in record order and densified after each
+        (densified fillers of earlier records take part in later mins, as
+        in the reference); a file without k-mers gets an empty sketch."""
+        rows: dict[int, np.ndarray] = {}
         for chunk, dev in batches:
             host = _collect(dev)
             for row, i in enumerate(chunk):
-                out[i] = self._finalize_tables([host[row]])
-        for i, v in enumerate(out):
-            if v is None:
-                out[i] = np.full(self.params.F, -1, np.int32)
+                rows[i] = host[row]
+        out, k = [], 0
+        for cnt in rec_counts:
+            with span("index.finalize", 2) as sp:
+                if sp:
+                    sp.set(records=cnt)
+                sketch = np.full(self.params.F, -1, dtype=np.int32)
+                for i in range(k, k + cnt):
+                    table = rows.pop(i, None)
+                    if table is None:
+                        continue
+                    if table.dtype == np.int16:  # narrow wire, -1 sentinel
+                        table = np.where(table == -1, INT32_MAX,
+                                         table.astype(np.int32))
+                    cur = np.where(sketch == -1, INT32_MAX, sketch)
+                    merged = np.minimum(cur, table)
+                    sketch = np.where(merged == INT32_MAX, -1,
+                                      merged).astype(np.int32)
+                    _densify(sketch, self.params)
+            out.append(sketch)
+            k += cnt
         return out
 
     def _host_sketch_packed(self, recs) -> list[np.ndarray]:
@@ -333,29 +327,24 @@ class SketchIndex:
                 work = None
                 if part:
                     recs = [r[1:] for r in part]
-                    short = [i for i, r in enumerate(recs)
-                             if use_host and r[1] <= host_max]
-                    short_set = set(short)
-                    batches = []
-                    if len(short) < len(recs):
-                        # short records become placeholders without
-                        # k-mers, which the dispatch leaves out
-                        long_recs = [(None, 0, None) if i in short_set
-                                     else r for i, r in enumerate(recs)]
-                        batches = dispatch_sketch_packed_batch(
-                            long_recs, self.params, self.device,
-                            min_pad=self.LINES_MIN_PAD)
+                    short, long = [], []
+                    for i, r in enumerate(recs):
+                        (short if use_host and r[1] <= host_max
+                         else long).append(i)
+                    batches = dispatch_sketch_packed_batch(
+                        [recs[i] for i in long], self.params, self.device,
+                        min_pad=self.LINES_MIN_PAD) if long else []
                     grp = max(64, -(-len(short) // 32))
                     futs = [(short[lo:lo + grp], pool.submit(
                         host_task, [recs[i] for i in short[lo:lo + grp]]))
                         for lo in range(0, len(short), grp)]
-                    work = (part, batches, futs)
+                    work = (part, long, batches, futs)
                 if pending is not None:
-                    ppart, pbatches, pfuts = pending
-                    if pbatches:
-                        sks = self._collect_packed(len(ppart), pbatches)
-                    else:  # every row comes from the pool
-                        sks = [None] * len(ppart)
+                    ppart, plong, pbatches, pfuts = pending
+                    sks = [None] * len(ppart)
+                    for i, sk in zip(plong, self._collect_packed(
+                            pbatches, [1] * len(plong))):
+                        sks[i] = sk
                     with span("stream.wait", 2) as sp:
                         if sp:
                             sp.set(tasks=len(pfuts))
@@ -387,117 +376,77 @@ class SketchIndex:
                             for r, sk in zip(part, sks))
         return gids
 
-    def _finalize_tables(self, tables) -> np.ndarray:
-        """Sequential per-record min-merge + densify (densified fillers of
-        earlier records take part in later mins, as in the reference)."""
-        with span("index.finalize", 2) as sp:
-            if sp:
-                sp.set(records=len(tables))
-            sketch = np.full(self.params.F, -1, dtype=np.int32)
-            for t in tables:
-                if t is None:
-                    continue
-                table = np.asarray(t)
-                if table.dtype == np.int16:  # narrow wire, -1 sentinel
-                    table = np.where(table == -1, INT32_MAX,
-                                     table.astype(np.int32))
-                cur = np.where(sketch == -1, INT32_MAX, sketch)
-                merged = np.minimum(cur, table)
-                sketch = np.where(merged == INT32_MAX, -1,
-                                  merged).astype(np.int32)
-                _densify(sketch, self.params)
-            return sketch
-
-    def _sketch_files_host(self, paths, io_threads: int | None):
-        """Whole-file sketches on the host sketcher: each file's read and
-        sketch chain in one pool task (both release the GIL)."""
-        io_threads = io_threads or min(8, 2 * (os.cpu_count() or 1))
-        with ThreadPoolExecutor(max_workers=io_threads) as pool:
-            futs = [pool.submit(carry(lambda pa=pa: self._host_sketch_whole(
-                        self._load_packed(pa)))) for pa in paths]
-            return [f.result() for f in futs]
-
     def sketch_files(self, paths, window: int = 256,
                      io_threads: int | None = None) -> list[np.ndarray]:
-        """Whole-file sketches for many files. The device route reads a
-        window of files in one native call (on a thread pool, a task a
-        file, where the library is absent), sketches all its records in
-        batches on the device (a window of 100 kb records stacks into
-        batches of up to 256 rows of 2^17 bases), and collects the previous
-        window's tables while the next one is read. NIQKI_TPU_WINDOW
-        overrides ``window``; NIQKI_TPU_SKETCH=host takes the host
-        sketcher."""
-        paths = list(paths)
+        """Whole-file sketches for many files, read a window of ``window``
+        files (NIQKI_TPU_WINDOW overrides it) at a time in one
+        ``_load_packed`` call. The device route sketches all of a window's
+        records in batches (a window of 100 kb records stacks into batches
+        of up to 256 rows of 2^17 bases) and collects the previous window's
+        tables while the next one is read; NIQKI_TPU_SKETCH=host sketches
+        each file on the host sketcher, a pool task a file, and the numpy
+        backend on the oracle. An unreadable file is skipped with a
+        warning and an empty sketch, as the reference skips missing
+        entries."""
+        return self._sketch_files(list(paths), window, io_threads,
+                                  strict=False)
+
+    def _sketch_files(self, paths, window: int, io_threads, strict: bool
+                      ) -> list:
+        p = self.params
         with span("index.sketch_files") as sp:
+            if self.backend == "numpy":     # the oracle sketches strings
+                if sp:
+                    sp.set(files=len(paths), batched=0)
+                return [self.sketch_records(
+                    s for _, s in read_records(pa, p.K)) for pa in paths]
             if sp:
-                sp.set(files=len(paths), batched=0)
-            return self._sketch_files(paths, window, io_threads, sp)
-
-    def _sketch_files(self, paths, window: int, io_threads, sp) -> list:
-        if self.backend == "numpy":
-            return [self.sketch_file(p) for p in paths]
-        if self._host_sketch_route():
-            return self._sketch_files_host(paths, io_threads)
-        env_w = os.environ.get("NIQKI_TPU_WINDOW")
-        if env_w:
-            window = max(1, int(env_w))
-        io_threads = io_threads or min(8, os.cpu_count() or 1)
-        if native.available():
-            if sp:
-                sp.set(batched=len(paths))
-
-            def read(part):     # read when the window is taken
-                return lambda: self._read_window(part, io_threads)
-            return self._sketch_windows(paths, window, sp, read)
-        load = carry(self._load_packed)
-        with ThreadPoolExecutor(max_workers=io_threads) as pool:
-            def start(part):
-                futs = [pool.submit(load, pa) for pa in part]
-                return lambda: [f.result() for f in futs]
-            return self._sketch_windows(paths, window, sp, start)
-
-    def _sketch_windows(self, paths, window: int, sp, start) -> list:
-        """sketch_files' device route. ``start(part)`` begins reading a
-        window of paths and returns a function that gives each file's
-        records; window i+1 is started, and its device work queued, before
-        window i is collected."""
-        out: list = [None] * len(paths)
-
-        def collect(pend) -> None:
-            w0, rec_counts, batches = pend
-            rows: dict[int, np.ndarray] = {}
-            for chunk, dev in batches:
-                host = _collect(dev)
-                for row, reci in enumerate(chunk):
-                    rows[reci] = host[row]
-            k = 0
-            for fi, cnt in enumerate(rec_counts):
-                out[w0 + fi] = self._finalize_tables(
-                    [rows.get(k + ri) for ri in range(cnt)])
-                k += cnt
-
-        pending = None
-        n_records = 0
-        take = start(paths[:window]) if paths else None
-        for w0 in range(0, len(paths), window):
-            encs = take()
-            nxt = w0 + window
-            if nxt < len(paths):
-                take = start(paths[nxt:nxt + window])
-            records = [rec for recs in encs for rec in recs]
-            n_records += len(records)
-            batches = dispatch_sketch_packed_batch(records, self.params,
-                                                   self.device)
-            dbg(f"window @{w0}: {len(encs)} files, {len(records)} "
-                f"records, {len(batches)} device batches")
+                sp.set(files=len(paths),
+                       batched=len(paths) if native.available() else 0)
+            env_w = os.environ.get("NIQKI_TPU_WINDOW")
+            if env_w:
+                window = max(1, int(env_w))
+            io_threads = io_threads or min(8, os.cpu_count() or 1)
+            windows = self._read_windows(paths, window, io_threads, strict)
+            if self._host_sketch_route():
+                sketch = carry(self._host_sketch_whole)
+                with ThreadPoolExecutor(max_workers=io_threads) as pool:
+                    return [sk for files in windows
+                            for sk in pool.map(sketch, files)]
+            out: list = []
+            pending = None
+            n_records = 0
+            for w0, files in zip(range(0, len(paths), window), windows):
+                records = [rec for recs in files for rec in recs]
+                n_records += len(records)
+                batches = dispatch_sketch_packed_batch(records, p,
+                                                       self.device)
+                dbg(f"window @{w0}: {len(files)} files, {len(records)} "
+                    f"records, {len(batches)} device batches")
+                if pending is not None:
+                    out += self._collect_packed(*pending)
+                pending = (batches, [len(recs) for recs in files])
             if pending is not None:
-                collect(pending)
-            pending = (w0, [len(recs) for recs in encs], batches)
-        if pending is not None:
-            collect(pending)
-        if sp:
-            sp.set(records=n_records)
-        return out
+                out += self._collect_packed(*pending)
+            if sp:
+                sp.set(records=n_records)
+            return out
+
+    def _read_windows(self, paths, window: int, io_threads: int,
+                      strict: bool):
+        """Yield each window's files' records, read when the window is
+        taken; a file that cannot be read raises under ``strict`` and is
+        otherwise skipped with a warning (no records)."""
+        for w0 in range(0, len(paths), window):
+            part = paths[w0:w0 + window]
+            files = self._load_packed(part, io_threads)
+            for i, recs in enumerate(files):
+                if not isinstance(recs, list):
+                    if strict:
+                        raise recs
+                    _warn_unreadable(part[i], recs)
+                    files[i] = []
+            yield files
 
     # ------------------------------------------------------------------
     # insertion and the dense matrix

@@ -1,6 +1,6 @@
 """ctypes bindings of the port's native host library
-(``csrc/host.cpp``: every export of ``native/niqki_host.cpp``, compiled
-from it, and the window reader).
+(``csrc/host.cpp``: every export of ``csrc/niqki_host.cpp``, the port's
+own copy of its host runtime, and the window reader).
 
 The port's counterpart of ``niqki_tpu/native.py``: the FASTA/FASTQ reader
 (encoded or packed, per record and chunked; packed, a window of whole
@@ -39,9 +39,8 @@ from .debug import span
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC_DIR = os.path.join(_REPO_ROOT, "niqki_tpu_torch", "csrc")
-_SOURCES = (os.path.join(_CSRC_DIR, "Makefile"),
-            os.path.join(_CSRC_DIR, "host.cpp"),
-            os.path.join(_REPO_ROOT, "native", "niqki_host.cpp"))
+_SOURCES = tuple(os.path.join(_CSRC_DIR, name)
+                 for name in ("Makefile", "host.cpp", "niqki_host.cpp"))
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "niqki_tpu_torch")
 _ABI_VERSION = 11
 

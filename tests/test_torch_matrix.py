@@ -6,6 +6,7 @@ its plain kernel versions). Output bytes must be identical: tolerance 0.
 
 import gzip
 import os
+import re
 import subprocess
 import sys
 
@@ -260,10 +261,32 @@ def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
+def _outside_paths(path):
+    """The paths outside niqki_tpu_torch/ that a source file names: a
+    token with a '/' that is absolute (but for the system's /dev and
+    /usr), climbs with '..', or starts at a directory or file of the
+    repository's root other than the port's; and each '#include "..."'
+    of a file not beside it."""
+    here = os.path.dirname(path)
+    roots = (set(os.listdir(REPO)) | {"build"}) - {"niqki_tpu_torch"}
+    with open(path) as f:
+        text = f.read()
+    bad = [t for t in re.findall(r"[\w.+-]*(?:/[\w.+-]+)+/?", text)
+           if t.startswith("/") and not t.startswith(("/dev/", "/usr/"))
+           or ".." in t.split("/")
+           or t.split("/")[0] in roots]
+    bad += [inc for inc in re.findall(r'#include "([^"]+)"', text)
+            if not os.path.isfile(os.path.join(here, inc))
+            or os.path.dirname(inc)]
+    return bad
+
+
 def test_chip_smoke_imports_only_the_port():
     """No file of niqki_tpu_torch (recursively) nor chip_smoke.py imports
     jax or any module of the JAX package; the smoke reaches the host-native
-    reference through the port."""
+    reference through the port. No file under niqki_tpu_torch/csrc/ (the
+    native library's and the kernels' sources, the Makefile) names a path
+    outside niqki_tpu_torch/, so the port builds from its own sources."""
     assert "niqki_tpu_torch" in set(_imported_modules(
         os.path.join(REPO, "chip_smoke.py")))
     bad = [(os.path.relpath(path, REPO), m)
@@ -277,6 +300,11 @@ def test_chip_smoke_imports_only_the_port():
         "parallel/__init__.py", "parallel/mesh.py", "parallel/auto.py",
         "parallel/sharded.py", "parallel/serving.py")} <= sources
     assert len(sources) > 10
+    csrc = os.path.join(REPO, "niqki_tpu_torch", "csrc")
+    names = sorted(os.listdir(csrc))
+    assert {"Makefile", "host.cpp", "niqki_host.cpp"} <= set(names)
+    bad = {n: _outside_paths(os.path.join(csrc, n)) for n in names}
+    assert not any(bad.values()), bad
 
 
 def test_entry_points_run_on_the_card_by_default(tmp_path, monkeypatch):

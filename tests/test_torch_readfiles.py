@@ -1,9 +1,9 @@
 """A window of whole files read in one native call
-(``native.read_packed_files``, ``SketchIndex._read_window``): record for
+(``native.read_packed_files``, ``SketchIndex._load_packed``): record for
 record the per-file reader's wire (``native.read_packed_records``), the
-JAX package's whole-file sketches and its skip warnings, and the native
-thread count, min(io_threads, files), as the ``index.read`` span reports
-it.
+JAX package's whole-file sketches and its skip warnings, ``sketch_file``
+as the one-file case of ``sketch_files``, and the native thread count,
+min(io_threads, files), as the ``index.read`` span reports it.
 """
 
 import gzip
@@ -166,6 +166,27 @@ def test_sketch_files_match_jax(files, jax_sketches, monkeypatch, capsys,
             np.testing.assert_array_equal(g, empty)
         else:
             assert (g >= 0).all(), path
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+def test_sketch_file_matches_sketch_files(files, jax_sketches, monkeypatch,
+                                          route):
+    """sketch_file is sketch_files' one-file case, on the device route and
+    on the host sketcher: each readable file's sketch equals the JAX
+    package's sketch_files row for it, the truncated gzip and the one with
+    trailing bytes included (the native reader keeps what inflated, where
+    Python's gzip raises); a path that cannot be opened raises OSError
+    instead of being skipped."""
+    monkeypatch.setenv("NIQKI_TPU_SKETCH", route)
+    want, _ = jax_sketches
+    idx = SketchIndex(SketchParams(lF=LF, K=K), device="cpu")
+    for path, w in zip(files, want):
+        if os.path.exists(path):
+            np.testing.assert_array_equal(idx.sketch_file(path), w,
+                                          err_msg=path)
+        else:
+            with pytest.raises(OSError, match=re.escape(path)):
+                idx.sketch_file(path)
 
 
 def _window(tmp_path, n: int):

@@ -360,6 +360,9 @@ NOT_PORTED = {
     # the sweep's wait / dispatch / emit times were stderr lines that
     # nothing read; the port's sweep.* spans (debug.tracing) carry them
     "NIQKI_TPU_MATRIX_STATS": "the sweep.* spans carry its numbers",
+    # the port finalizes a file's device tables in one loop, which also
+    # collects them: _collect_packed takes records-per-file counts
+    "index.py:SketchIndex._finalize_tables": "one loop: _collect_packed",
 }
 # NIQKI_TPU_COUNT=bcount-interpret (Pallas interpret mode) is a value, not
 # a name: the port's COUNT_MODES leave it out, and the plain versions

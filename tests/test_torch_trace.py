@@ -218,9 +218,10 @@ def _lookup_index():
 
 
 def test_lookup_spans_and_the_cap(monkeypatch):
-    """One sketch_file and pretty_hits_batch: the encode, K1, finalize,
-    the host copy and plane build, K2 and the formatter, each with its
-    counts; a cap of 3 keeps three spans and counts the rest dropped."""
+    """One sketch_file and pretty_hits_batch: sketch_files' window of one
+    file (the native read, K1, finalize), the host copy and plane build,
+    K2 and the formatter, each with its counts; a cap of 3 keeps three
+    spans and counts the rest dropped."""
     idx = _lookup_index()
     path = QUERIES[0]
     debug.tracing(True)
@@ -229,12 +230,18 @@ def test_lookup_spans_and_the_cap(monkeypatch):
     spans = debug.spans()
     _check_tree(spans)
     assert buf.startswith(path.encode() + b" ")
-    enc, = _named(spans, "index.encode")
-    assert enc.counts == {"records": 1, "bases": _bases(path)}
+    sk, = _named(spans, "index.sketch_files")
+    assert sk.counts == {"files": 1, "batched": 1, "records": 1}
+    read, = _named(spans, "index.read")
+    assert read.counts == {"files": 1, "records": 1, "bases": _bases(path),
+                           "threads": 1, "skipped": 0}
     fin, = _named(spans, "index.finalize")
     assert fin.counts == {"records": 1}
     col, = _named(spans, "k1.collect")
     assert col.counts["bytes"] >= idx.params.F * 2
+    dis, = _named(spans, "k1.dispatch")
+    assert all(s.parent == sk.sid for s in (read, dis, col, fin))
+    assert not _named(spans, "index.encode")
     stored, = _named(spans, "index.stored")
     assert stored.counts == {"bytes": 4096 * idx.params.F * 4}
     planes, = _named(spans, "planes.build")
@@ -243,14 +250,14 @@ def test_lookup_spans_and_the_cap(monkeypatch):
     assert k2.counts == {"Q": 1, "G": 4096, "lanes": idx.params.F // 32}
     fmt, = _named(spans, "emit.format")
     assert fmt.counts == {"rows": 1, "bytes": len(buf)}
-    assert len(spans) == 8
+    assert len(spans) == 9
     monkeypatch.setattr(debug, "CAP", 3)
     q = idx.sketch_file(path)
     idx.pretty_hits_batch(q[None], [path])
-    got = debug.spans()     # the copy and the planes are cached: 6 spans
-    assert [s.name for s in got] == ["index.encode", "k1.dispatch",
+    got = debug.spans()     # the copy and the planes are cached: 7 spans
+    assert [s.name for s in got] == ["index.read", "k1.dispatch",
                                      "k1.collect"]
-    assert got.dropped == 3
+    assert got.dropped == 4
 
 
 def test_spans_share_the_profilers_clock(tmp_path):
