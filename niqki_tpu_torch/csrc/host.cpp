@@ -1,7 +1,8 @@
 // The port's native host library: every export of niqki_host.cpp, the
-// port's own copy of its host runtime, and nq_read_packed_files, the
-// window reader of SketchIndex.sketch_files. Built from this directory
-// alone by niqki_tpu_torch/native.py through this directory's Makefile.
+// port's own copy of its host runtime, nq_read_packed_files, the window
+// reader of SketchIndex.sketch_files, and nq_finalize_files, its finalize.
+// Built from this directory alone by niqki_tpu_torch/native.py through this
+// directory's Makefile.
 //
 // The window reader shares pack_seq_into_chunk with the per-file readers
 // (the 2-bit + rc-exception packing exists once) and keeps their record
@@ -376,6 +377,43 @@ int64_t nq_read_packed_files(const char* const* paths, int64_t n, int64_t K,
   }
   for (auto& s : scratch) give_scratch(std::move(s));
   return ok ? used : -1;
+}
+
+// Final sketches (-1 empty) of n files in ONE call, a file at a time on
+// min(max_threads, n) threads taking files from a shared counter. File i
+// holds records rec_off[i] .. rec_off[i + 1] - 1 of tables: F entries each,
+// int16 with a -1 empty where narrow, else int32 with an INT32_MAX empty;
+// null for a record without k-mers. out's row i starts empty and, record
+// after record in order, takes the slotwise min with the table (empty
+// above every fingerprint) and is densified, so densified fillers of
+// earlier records take part in later mins, as in the reference. Returns
+// the number of threads that ran.
+int64_t nq_finalize_files(const void* const* tables, int64_t narrow,
+                          const int64_t* rec_off, int64_t n, int64_t F,
+                          int64_t max_threads, int32_t* out) {
+  const int64_t T = std::max<int64_t>(1, std::min(max_threads, n));
+  std::atomic<int64_t> next{0};
+  return run_on_threads(T, [&](int64_t) {
+    for (int64_t i; (i = next.fetch_add(1)) < n;) {
+      // as uint32, the -1 empty sorts above every fingerprint (>= 0)
+      uint32_t* row = (uint32_t*)(out + i * F);
+      std::fill(row, row + F, UINT32_MAX);
+      for (int64_t r = rec_off[i]; r < rec_off[i + 1]; ++r) {
+        if (!tables[r]) continue;
+        if (narrow) {
+          const int16_t* t = (const int16_t*)tables[r];
+          for (int64_t f = 0; f < F; ++f)
+            row[f] = std::min(row[f], (uint32_t)(int32_t)t[f]);
+        } else {
+          const int32_t* t = (const int32_t*)tables[r];
+          for (int64_t f = 0; f < F; ++f)
+            row[f] = std::min(
+                row[f], t[f] == INT32_MAX ? UINT32_MAX : (uint32_t)t[f]);
+        }
+        nq_densify(out + i * F, F);
+      }
+    }
+  });
 }
 
 }  // extern "C"

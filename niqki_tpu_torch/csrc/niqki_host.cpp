@@ -1607,6 +1607,6 @@ int64_t nq_gzip_member(const uint8_t* data, int64_t n, int64_t level,
 }
 
 // Version tag so the Python wrapper can detect ABI drift.
-int64_t nq_abi_version() { return 11; }
+int64_t nq_abi_version() { return 12; }
 
 }  // extern "C"

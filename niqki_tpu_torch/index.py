@@ -55,6 +55,30 @@ def _densify(sketch: np.ndarray, p: SketchParams) -> None:
         oracle.densify(sketch, p)
 
 
+def _finalize_loop(hosts, rec_counts, p: SketchParams) -> list[np.ndarray]:
+    """``native.finalize_files``' answer in numpy, a file at a time."""
+    rows = {i: host[row] for chunk, host in hosts
+            for row, i in enumerate(chunk)}
+    out, k = [], 0
+    for cnt in rec_counts:
+        sketch = np.full(p.F, -1, dtype=np.int32)
+        for i in range(k, k + cnt):
+            table = rows.get(i)
+            if table is None:
+                continue
+            if table.dtype == np.int16:  # narrow wire, -1 sentinel
+                table = np.where(table == -1, INT32_MAX,
+                                 table.astype(np.int32))
+            cur = np.where(sketch == -1, INT32_MAX, sketch)
+            merged = np.minimum(cur, table)
+            sketch = np.where(merged == INT32_MAX, -1,
+                              merged).astype(np.int32)
+            _densify(sketch, p)
+        out.append(sketch)
+        k += cnt
+    return out
+
+
 def hits_from_counts(counts: np.ndarray, min_score: int
                      ) -> list[tuple[int, int]]:
     """Thresholded (count, gid) list sorted count desc then gid desc, the
@@ -248,32 +272,28 @@ class SketchIndex:
         its records, file i holding the next ``rec_counts[i]`` records:
         its tables min-merged in record order and densified after each
         (densified fillers of earlier records take part in later mins, as
-        in the reference); a file without k-mers gets an empty sketch."""
-        rows: dict[int, np.ndarray] = {}
-        for chunk, dev in batches:
-            host = _collect(dev)
-            for row, i in enumerate(chunk):
-                rows[i] = host[row]
-        out, k = [], 0
-        for cnt in rec_counts:
-            with span("index.finalize", 2) as sp:
-                if sp:
-                    sp.set(records=cnt)
-                sketch = np.full(self.params.F, -1, dtype=np.int32)
-                for i in range(k, k + cnt):
-                    table = rows.pop(i, None)
-                    if table is None:
-                        continue
-                    if table.dtype == np.int16:  # narrow wire, -1 sentinel
-                        table = np.where(table == -1, INT32_MAX,
-                                         table.astype(np.int32))
-                    cur = np.where(sketch == -1, INT32_MAX, sketch)
-                    merged = np.minimum(cur, table)
-                    sketch = np.where(merged == INT32_MAX, -1,
-                                      merged).astype(np.int32)
-                    _densify(sketch, self.params)
-            out.append(sketch)
-            k += cnt
+        in the reference); a file without k-mers gets an empty sketch.
+        One native call finalizes every file, on up to 8 threads across
+        files; ``_finalize_loop`` where the library is absent."""
+        if not rec_counts:
+            return []
+        hosts = [(chunk, _collect(dev)) for chunk, dev in batches]
+        with span("index.finalize", 2) as sp:
+            if native.available():
+                out, threads = native.finalize_files(
+                    hosts, rec_counts, self.params.F,
+                    min(8, os.cpu_count() or 1))
+            else:
+                out, threads = _finalize_loop(hosts, rec_counts,
+                                              self.params), 1
+            if sp:
+                present = np.zeros(sum(rec_counts) + 1, np.int64)
+                for chunk, _ in hosts:
+                    present[np.asarray(chunk, np.int64) + 1] = 1
+                seen = np.cumsum(present)[np.cumsum([0, *rec_counts])]
+                sp.set(files=len(rec_counts), records=sum(rec_counts),
+                       merged=int((np.diff(seen) >= 2).sum()),
+                       threads=threads)
         return out
 
     def _host_sketch_packed(self, recs) -> list[np.ndarray]:

@@ -4,7 +4,8 @@ own copy of its host runtime, and the window reader).
 
 The port's counterpart of ``niqki_tpu/native.py``: the FASTA/FASTQ reader
 (encoded or packed, per record and chunked; packed, a window of whole
-files in one call), densify, the host sketchers
+files in one call), densify (of one sketch, or the min-merge and densify
+of a window's files in one call), the host sketchers
 (the rolling sketch of code arrays, whole-file and per-record batches of
 packed records, and their per-stage timer), the dump's bucket-stream
 scanners, the host equality count, the matrix and hit formatters, the
@@ -42,7 +43,7 @@ _CSRC_DIR = os.path.join(_REPO_ROOT, "niqki_tpu_torch", "csrc")
 _SOURCES = tuple(os.path.join(_CSRC_DIR, name)
                  for name in ("Makefile", "host.cpp", "niqki_host.cpp"))
 _BUILD_DIR = os.path.join(_REPO_ROOT, "build", "niqki_tpu_torch")
-_ABI_VERSION = 11
+_ABI_VERSION = 12
 
 _ALLOC = ctypes.CFUNCTYPE(ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64)
 
@@ -150,6 +151,8 @@ def _bind(lib) -> None:
     lib.nq_read_packed_files.restype = i64
     lib.nq_read_packed_files.argtypes = [
         ctypes.POINTER(ctypes.c_char_p), i64, i64, i64, _ALLOC, i64c, i32c]
+    lib.nq_finalize_files.restype = i64
+    lib.nq_finalize_files.argtypes = [vp, i64, i64c, i64, i64, i64, i32c]
 
 
 def _load():
@@ -347,6 +350,37 @@ def read_packed_files(paths, K: int, max_threads: int):
             except OSError as err:
                 files.append(err)
     return files, int(threads)
+
+
+def finalize_files(batches, rec_counts, F: int, max_threads: int):
+    """Final sketches (-1 empty) of len(rec_counts) files, file i of the
+    next rec_counts[i] records, in one native call that releases the GIL
+    once, on min(max_threads, files) native threads: ``(rows, threads)``,
+    rows the (F,) int32 rows of one (files, F) array. ``batches`` are
+    (record_indices, (B, F) tables) pairs of one dtype, int16 with a -1
+    empty or int32 with an INT32_MAX empty, rows past len(record_indices)
+    padding; a record in no batch has no k-mers. A file's records
+    min-merge in order, densified after each."""
+    lib = _require()
+    rec_off = np.zeros(len(rec_counts) + 1, np.int64)
+    np.cumsum(rec_counts, out=rec_off[1:])
+    ptrs = np.zeros(max(int(rec_off[-1]), 1), np.uintp)
+    dtype = batches[0][1].dtype if batches else np.dtype(np.int32)
+    hosts = []                          # kept alive until the call returns
+    for idx, host in batches:
+        if host.dtype != dtype or host.dtype not in (np.int16, np.int32) \
+                or host.shape[1:] != (F,) or len(host) < len(idx):
+            raise ValueError("finalize_files takes (B, F) int16 or int32 "
+                             "tables of one dtype, a row a record")
+        host = np.ascontiguousarray(host)
+        hosts.append(host)
+        ptrs[np.asarray(idx, np.int64)] = host.ctypes.data + \
+            np.arange(len(idx), dtype=np.uintp) * np.uintp(host.strides[0])
+    out = np.empty((len(rec_counts), F), np.int32)
+    threads = lib.nq_finalize_files(ptrs.ctypes.data, dtype == np.int16,
+                                    rec_off, len(rec_counts), F,
+                                    max(1, max_threads), out)
+    return list(out), int(threads)
 
 
 def _concat_recs(recs):

@@ -193,6 +193,74 @@ def test_sketch_stage_bench_keys():
         native.sketch_stage_bench(words[:1], 20, 10, 31, 12, 4)
 
 
+# records a file, and the records that have no k-mers (in no batch)
+_FINALIZE_LAYOUTS = {
+    "one": ([1] * 6, ()),
+    "merge": ([3, 2, 1], ()),
+    "empty": ([2, 1, 0, 1], (0, 1)),
+    "polyN": ([1, 2, 1], ()),
+}
+
+
+@pytest.mark.skipif(not native.available(),
+                    reason="the port's native library is absent")
+@pytest.mark.parametrize("layout,F,dtype", [
+    (layout, 4096, dtype) for layout in _FINALIZE_LAYOUTS
+    for dtype in (np.int16, np.int32)] + [
+    ("merge", 32768, np.int16), ("empty", 32768, np.int32)])
+def test_finalize_files_matches_the_loop(monkeypatch, layout, F, dtype):
+    """native.finalize_files == index._finalize_loop, the Python loop, with
+    native densify and with oracle.densify: one-record files, files of 2-3
+    records whose min-merge order matters, a file whose records all lack
+    k-mers (an empty sketch) and one of no records, int16 (-1 empty) and
+    int32 (INT32_MAX empty) tables, and poly-N-like tables whose only
+    fingerprint is 0 (densify's stuck-pass exit). Tables come in two
+    batches, records out of order, with padding rows never read, the
+    second batch not C-contiguous; a batch of another dtype or width, or
+    of fewer rows than records, raises."""
+    from niqki_tpu_torch import index
+    from niqki_tpu_torch.params import SketchParams
+    p = SketchParams(lF=F.bit_length() - 1)
+    rec_counts, absent = _FINALIZE_LAYOUTS[layout]
+    rng = np.random.default_rng(F + len(layout))
+    R = sum(rec_counts)
+    empty = -1 if dtype == np.int16 else INT32_MAX
+    hi = 1 << (14 if dtype == np.int16 else 20)
+    tables = rng.integers(0, hi, (R, F)).astype(dtype)
+    tables[rng.random((R, F)) < 0.15] = empty
+    if layout == "polyN":       # file 0 and the first record of file 1
+        tables[:2] = empty
+        tables[:2, 0] = 0
+    present = rng.permutation([r for r in range(R) if r not in absent])
+    hosts = []
+    for chunk in np.array_split(present, 2):
+        host = np.full((len(chunk) + 2, F), 7, dtype)   # 2 padding rows
+        host[:len(chunk)] = tables[chunk]
+        hosts.append((chunk.tolist(), host))
+    hosts[1] = (hosts[1][0], np.asfortranarray(hosts[1][1]))
+    got, threads = native.finalize_files(hosts, rec_counts, F, 4)
+    assert threads == min(4, len(rec_counts))
+    loop = index._finalize_loop(hosts, rec_counts, p)
+    monkeypatch.setattr(native, "available", lambda: False)
+    plain = index._finalize_loop(hosts, rec_counts, p)
+    assert len(got) == len(loop) == len(plain) == len(rec_counts)
+    for g, a, b in zip(got, loop, plain):
+        assert g.dtype == np.int32 and g.shape == (F,)
+        assert np.array_equal(g, a) and np.array_equal(g, b)
+    for i, cnt in enumerate(rec_counts):
+        k = sum(rec_counts[:i])
+        if not set(range(k, k + cnt)) - set(absent):
+            assert (got[i] == -1).all()
+    if layout == "polyN":
+        assert (got[0] == -1).sum() == F - 1 and got[0][0] == 0
+    if layout != "empty":
+        assert (got[-1] != -1).all()
+    chunk, host = hosts[0]
+    for bad in (host.astype(np.int64), host[:, :-1], host[:len(chunk) - 1]):
+        with pytest.raises(ValueError, match="tables of one dtype"):
+            native.finalize_files([(chunk, bad)], rec_counts, F, 4)
+
+
 # ---------------------------------------------------------------------------
 # the writer
 

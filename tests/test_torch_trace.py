@@ -142,8 +142,10 @@ def test_query_spans(tmp_path):
             "bases": sum(_bases(p) for p in files),
             "threads": min(len(files), 8, os.cpu_count() or 1),
             "skipped": 0}
-    fin = [s for s in _named(spans, "index.finalize") if s.rid == qry.rid]
-    assert sorted(s.counts["records"] for s in fin) == [1, 2]
+    fin, = [s for s in _named(spans, "index.finalize") if s.rid == qry.rid]
+    assert fin.counts == {"files": 2, "records": 3, "merged": 1,
+                          "threads": min(2, 8, os.cpu_count() or 1)}
+    assert fin.tid == sk[qry.rid].tid and fin.parent == sk[qry.rid].sid
     rows, = _named(spans, "index.insert_rows")
     assert rows.counts == {"rows": 3} and rows.rid == ins.rid
     wait, = _named(spans, "engine.sketch_wait")
@@ -201,8 +203,10 @@ def test_lines_spans(tmp_path, monkeypatch):
     assert sum(s.counts["records"] for s in host) == 3
     assert all(s.tid != main and s.parent == ins.sid for s in host)
     assert _named(spans, "stream.wait")
-    assert sum(s.counts["records"]
-               for s in _named(spans, "index.finalize")) == 3
+    fin = _named(spans, "index.finalize")
+    assert sum(s.counts["files"] for s in fin) == 3
+    assert sum(s.counts["records"] for s in fin) == 3
+    assert all(s.counts["merged"] == 0 and s.tid == main for s in fin)
     assert _named(spans, "k1.dispatch") and _named(spans, "k1.collect")
     assert sum(s.counts["rows"]
                for s in _named(spans, "index.insert_rows")) == len(lens)
@@ -236,7 +240,8 @@ def test_lookup_spans_and_the_cap(monkeypatch):
     assert read.counts == {"files": 1, "records": 1, "bases": _bases(path),
                            "threads": 1, "skipped": 0}
     fin, = _named(spans, "index.finalize")
-    assert fin.counts == {"records": 1}
+    assert fin.counts == {"files": 1, "records": 1, "merged": 0,
+                          "threads": 1}
     col, = _named(spans, "k1.collect")
     assert col.counts["bytes"] >= idx.params.F * 2
     dis, = _named(spans, "k1.dispatch")
